@@ -4,21 +4,38 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  1. device   card name and power limit, torch and CUDA versions, TF32 flags
-  2. build    compile the CUDA kernels from csrc/ (one nvcc per source, in parallel)
-  3. parity   each kernel against its plain PyTorch version at the main path's shapes
-              (relative max error 1e-5 forward, 2e-5 gradients), bit-identical
-              repeats of the two backward kernels, and CUDA-event timings (median of
-              20 after warm-up) of kernel, plain version and the library yardstick
-  4. trainer  the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
-              patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
-              synthetic extract held in memory, with every kernel's launch count
-  5. agree    one minibatch (2 ADMM iterations) through the kernels and through the
-              plain path from the same state: per-term metrics within 1e-4; and the
-              cascade forward on the card against the CPU on two patches
-Then the kernels table as one JSON line, the card's name and power limit, and
-{"ok": true, "device": {...}} as the last line.  Without a CUDA device it exits 2
-before printing any result.  It imports nothing of JAX or of the JAX package.
+  1. device     card name and power limit, torch and CUDA versions, TF32 flags
+  2. build      compile the CUDA kernels from csrc/ (one nvcc per source, in parallel)
+  3. parity     each kernel of K1-K5 against its plain PyTorch version at the main
+                path's shapes (relative max error 1e-5 forward, 2e-5 gradients),
+                bit-identical repeats of the three backward kernels, and CUDA-event
+                timings (median of 20 after warm-up, tools/measure.py) of kernel, plain
+                version and library yardstick
+  4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
+                patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
+                synthetic extract held in memory, with every kernel's launch count
+  5. agree      one minibatch (2 ADMM iterations) through the kernels and through the
+                plain path from the same state: per-term metrics within 1e-4; and the
+                cascade forward on the card against the CPU on two patches
+  6. head_input_grad  enc_head on a CUDA x that needs its gradient: K3, K4 and K5
+                launch, and dx matches autograd through the plain version
+  7. conv0_probe      the port's probe tool (its parity check, then K6, its plain
+                version and cuDNN timed) at batch 420, then K6's parity at 420 (1e-5):
+                K6's row of the kernels line
+  8. lbfgs      the full-width Trainer through the published recipe's Adam -> L-BFGS
+                switch (preset full_khm_lbfgs in float32, its prefetch on): 4 epochs x
+                1 minibatch x 2 ADMM iterations over the groups ae2d, ae1d, khm, ae2d,
+                and its checkpoint; per epoch, timed around the step alone, its kind,
+                group, ms and closure evaluations per ADMM iteration, host
+                synchronisations, peak memory and K1-K4 launches
+  9. agree_lbfgs      the L-BFGS closure (value, every gradient) through the kernels
+                (K1-K4 launched) against the plain path (none launched), within 1e-4 /
+                2e-4, and one L-BFGS ADMM iteration through each with both func_evals
+                printed
+Each path (4, 6, 7, 8) is driven with the launch counts set to 0 just before it and
+read just after.  Then the kernels table as one JSON line, the card's name and power
+limit, and {"ok": true, "device": {...}} as the last line.  Without a CUDA device it
+exits 2 before printing any result.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -33,9 +50,8 @@ import time
 
 import torch
 
-PEAK_BYTES_S = 3.35e12         # H100 SXM HBM3
-PEAK_FP32_FLOP_S = 67e12       # H100 SXM FP32 outside the tensor cores
-REPEATS = 20
+ADAM_PATH = ("khm_fwd", "khm_bwd", "head_fwd", "head_bwd")    # K1-K4
+PATCHES = 420                  # 12 baselines x 35 patches: one full-width minibatch
 
 
 def emit(obj: dict) -> None:
@@ -50,24 +66,18 @@ def abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max())
 
 
-def time_ms(fn, repeats: int = REPEATS) -> float:
-    """Median over ``repeats`` single calls, each bracketed by CUDA events."""
-    for _ in range(3):
-        fn()
+def host_ms(fn, repeats: int = 5) -> float:
+    """Median host time of ``fn`` between two synchronisations, after one warm-up:
+    for a call that launches many kernels and reads values on the host."""
+    fn()
     times = []
     for _ in range(repeats):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_FLOP_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def nvidia_smi() -> str:
@@ -80,6 +90,7 @@ def nvidia_smi() -> str:
 
 def khm_phase(dev) -> list[dict]:
     from lshm_tpu_torch.kernels import khm as K
+    from lshm_tpu_torch.tools.measure import bound, time_ms
 
     g = torch.Generator().manual_seed(0)
     rows = []
@@ -127,6 +138,7 @@ def head_phase(dev) -> list[dict]:
     import torch.nn.functional as F
 
     from lshm_tpu_torch.kernels import conv_head as H
+    from lshm_tpu_torch.tools.measure import bound, time_ms
 
     B, P, C, F0, F1 = 420, 128, 4, 8, 12
     g = torch.Generator().manual_seed(1)
@@ -141,6 +153,9 @@ def head_phase(dev) -> list[dict]:
     gr = H.head_weight_grads(x, w0, b0, w1, b1, g1)
     gr_p = H.head_grads_plain(x, w0, b0, w1, b1, g1)
     gr2 = H.head_weight_grads(x, w0, b0, w1, b1, g1)
+    dx = H.head_input_grad(x, w0, b0, w1, b1, g1)
+    dx_p = H.head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0]
+    dx2 = H.head_input_grad(x, w0, b0, w1, b1, g1)
     # float64 reference on the first 8 samples: cuDNN's NHWC convolutions may sum in
     # the kernel's own order, so agreement with the plain version can be bit-exact
     y64 = H.enc_head_plain(*(t.double() for t in (x[:8], w0, b0, w1, b1)))
@@ -152,10 +167,12 @@ def head_phase(dev) -> list[dict]:
            "fwd_rel_err_vs_f64": {"kernel": rel_err(y[:8].double(), y64),
                                   "plain": rel_err(y_p[:8].double(), y64)},
            "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
-           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
+           "dx_rel_err": rel_err(dx, dx_p), "dx_bit_identical": bool(torch.equal(dx, dx2))}
     emit(row)
     if (fwd_rel > 1e-5 or bwd_rel > 2e-5 or not row["bwd_bit_identical"]
-            or row["fwd_rel_err_vs_f64"]["kernel"] > 1e-5):
+            or row["fwd_rel_err_vs_f64"]["kernel"] > 1e-5
+            or row["dx_rel_err"] > 2e-5 or not row["dx_bit_identical"]):
         raise AssertionError(f"conv-head kernels disagree with their plain versions: {row}")
 
     # library yardsticks: cuDNN on NCHW-contiguous input (no layout copies)
@@ -171,6 +188,12 @@ def head_phase(dev) -> list[dict]:
     def cudnn_bwd():      # backward from saved activations, no recompute
         return torch.autograd.grad(y_graph, ws, g1_nchw, retain_graph=True)
 
+    x_req = x_nchw.clone().requires_grad_()
+    y_dx = F.elu(F.conv2d(F.elu(F.conv2d(x_req, w0, b0, 2, 1)), w1, b1, 2, 1))
+
+    def cudnn_dx():       # cuDNN's data gradient of the same graph, saved activations
+        return torch.autograd.grad(y_dx, x_req, g1_nchw, retain_graph=True)
+
     in_b, out_b = 4.0 * B * P * P * C, 4.0 * B * (P // 4) ** 2 * F1
     w_b = 4.0 * (w0.numel() + w1.numel() + F0 + F1)
     mac0 = B * (P // 2) ** 2 * F0 * 16 * C        # stage-0 multiply-adds
@@ -178,6 +201,9 @@ def head_phase(dev) -> list[dict]:
     b3 = bound(in_b + out_b + w_b, 2.0 * (mac0 + mac1))
     # backward: recompute both stages, dW1 and the stage-0 cotangent (mac1 each), dW0
     b4 = bound(in_b + out_b + 2 * w_b, 2.0 * (mac0 + mac1 + 2 * mac1 + mac0))
+    # input backward: recompute both stages, the stage-0 cotangent (mac1), dx (mac0);
+    # reads x and g1, writes dx
+    b5 = bound(2 * in_b + out_b + w_b, 2.0 * (2 * mac0 + 2 * mac1))
     return [
         dict(name="K3 head_fwd", route="cuda", source="lshm_tpu_torch/csrc/conv_head.cu",
              replaces="lshm_tpu/kernels/conv2d_outer.py:233", counter="head_fwd",
@@ -191,6 +217,13 @@ def head_phase(dev) -> list[dict]:
              ms=time_ms(lambda: H.head_weight_grads(x, w0, b0, w1, b1, g1)),
              plain_ms=time_ms(lambda: H.head_grads_plain(x, w0, b0, w1, b1, g1)),
              bound_ms=b4[0], bound_by=b4[1], library_ms=time_ms(cudnn_bwd)),
+        dict(name="K5 head_dx", route="cuda", source="lshm_tpu_torch/csrc/conv_head.cu",
+             replaces="lshm_tpu/kernels/conv2d_outer.py:404", counter="head_dx",
+             max_abs_err=abs_err(dx, dx_p),
+             ms=time_ms(lambda: H.head_input_grad(x, w0, b0, w1, b1, g1)),
+             plain_ms=time_ms(lambda: H.head_grads_plain(x, w0, b0, w1, b1, g1,
+                                                         input_grad=True)),
+             bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx)),
     ]
 
 
@@ -247,7 +280,7 @@ def trainer_phase(tree, tmpdir: str) -> dict:
         raise AssertionError(f"expected 3 minibatches of 420 patches: {row}")
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite losses: {losses}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in ADAM_PATH if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     return counts
@@ -289,6 +322,277 @@ def agree_phase(tree, tmpdir: str) -> None:
         raise AssertionError("kernel path and plain path disagree")
 
 
+# --------------------------------------------------------------------- phases 6, 7
+
+def head_input_grad_phase(dev) -> dict:
+    """enc_head with a CUDA x that needs its gradient, backward through EncHead."""
+    from lshm_tpu_torch.kernels import conv_head as H
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+
+    B, P, C = 420, 128, 4
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(B, P, P, C, generator=g).to(dev)
+    ws = [(torch.randn(8, C, 4, 4, generator=g) * 0.2).to(dev),
+          (torch.randn(8, generator=g) * 0.1).to(dev),
+          (torch.randn(12, 8, 4, 4, generator=g) * 0.2).to(dev),
+          (torch.randn(12, generator=g) * 0.1).to(dev)]
+    g1 = torch.randn(B, P // 4, P // 4, 12, generator=g).to(dev)
+    xr, wr = x.clone().requires_grad_(), [w.clone().requires_grad_() for w in ws]
+    reset_launches()
+    dx, *dws = torch.autograd.grad(H.enc_head(xr, *wr), [xr, *wr], g1)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = H.head_grads_plain(x, *ws, g1, input_grad=True)
+    row = {"phase": "head_input_grad", "launches": {k: counts[k] for k in
+                                                   ("head_fwd", "head_bwd", "head_dx")},
+           "dx_rel_err": rel_err(dx, want[0]),
+           "dw_rel_err": max(rel_err(a, b) for a, b in zip(dws, want[1:]))}
+    emit(row)
+    if any(v == 0 for v in row["launches"].values()):
+        raise AssertionError(f"EncHead's backward did not launch K3/K4/K5: {row}")
+    if row["dx_rel_err"] > 2e-5 or row["dw_rel_err"] > 2e-5:
+        raise AssertionError(f"EncHead's gradients disagree with autograd: {row}")
+    return counts
+
+
+def conv0_probe_phase(dev) -> tuple[dict, dict]:
+    """The port's probe tool at batch 420 (its own parity check, then the timings of
+    kernel, plain version and cuDNN), then K6 against its plain version at 420."""
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.tools import conv0_probe
+
+    reset_launches()
+    result = conv0_probe.run(dev, batch=PATCHES)
+    counts = launch_counts()
+    full = conv0_probe.parity(dev, batch=PATCHES, seed=2)
+    emit({"phase": "conv0_probe", "conv0_launches": counts["conv0"], **result,
+          "parity_at_batch": full})
+    if counts["conv0"] == 0:
+        raise AssertionError("the probe did not launch K6")
+    if full["parity_rel_err"] > 1e-5:
+        raise AssertionError(f"conv0 kernel disagrees with its plain version: {full}")
+    row = dict(name="K6 conv0", route="cuda", source="lshm_tpu_torch/csrc/conv0.cu",
+               replaces="benchmarks/pallas_conv_probe.py:56", counter="conv0",
+               max_abs_err=full["parity_max_abs_err"], ms=result["kernel_ms"],
+               plain_ms=result["plain_ms"], bound_ms=result["bound_ms"],
+               bound_by=result["bound_by"], library_ms=result["cudnn_ms"])
+    return counts, row
+
+
+# --------------------------------------------------------------------- phases 8, 9
+
+def lbfgs_config(checkpoint_dir: str = ""):
+    """preset full_khm_lbfgs (float32 activations: the port has no bfloat16 yet) with
+    the published recipe's Adam -> L-BFGS switch, cut to 4 epochs x 1 minibatch x 2
+    ADMM iterations."""
+    import dataclasses
+
+    from lshm_tpu_torch.config import RampStage, preset
+
+    cfg = preset("full_khm_lbfgs")
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(cfg.model, compute_dtype="float32",
+                                  khm_backend="pallas", pallas_head=True),
+        train=dataclasses.replace(
+            cfg.train, num_epochs=4, iters_per_epoch=1, admm_iters=2,
+            checkpoint_dir=checkpoint_dir,
+            ramp=(RampStage(epochs=1, alpha=0.001, beta=0.001, gamma=0.001,
+                            optimizer="adam"),
+                  RampStage(epochs=3, alpha=0.01, beta=0.01, gamma=0.01,
+                            optimizer="lbfgs"))),
+    )
+
+
+class _StepClock:
+    """Times every minibatch step of a ``Trainer.run``, and nothing else of it (data,
+    prefetch, revert snapshot, checkpoint): while it is entered, the step factories that
+    ``Trainer.run`` calls return steps wrapped in two synchronisations.  Around each
+    step it records the host time, the peak memory, and before and after it the launch
+    counts, the parameters (on the host) and, for an L-BFGS step, the optimizer's
+    ``func_evals`` and ``host_syncs``."""
+
+    def __init__(self):
+        from lshm_tpu_torch.train import trainer
+
+        self.module, self.steps = trainer, []
+        self.factories = (trainer.make_train_step, trainer.make_lbfgs_train_step)
+
+    def __enter__(self):
+        adam, lbfgs = self.factories
+        self.module.make_train_step = self._wrap(adam, lbfgs=False)
+        self.module.make_lbfgs_train_step = self._wrap(lbfgs, lbfgs=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_train_step, self.module.make_lbfgs_train_step = self.factories
+
+    @staticmethod
+    def _mark(state, lbfgs: bool) -> dict:
+        from lshm_tpu_torch.kernels import launch_counts
+
+        return dict(counts=launch_counts(),
+                    func_evals=state.opt.func_evals if lbfgs else 0,
+                    syncs=state.opt.host_syncs if lbfgs else 0,
+                    params={k: v.to("cpu", copy=True)
+                            for k, v in state.model.state_dict().items()})
+
+    def _wrap(self, factory, lbfgs: bool):
+        def make(*args, **kw):
+            step = factory(*args, **kw)
+
+            def timed(state, x, uv, w):
+                torch.cuda.synchronize()
+                before = self._mark(state, lbfgs)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = step(state, x, uv, w)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                self.steps.append(dict(ms=ms, peak=torch.cuda.max_memory_allocated(),
+                                       before=before, after=self._mark(state, lbfgs)))
+                return state, metrics
+            return timed
+        return make
+
+
+def lbfgs_phase(dev, tree, tmpdir: str) -> dict:
+    import math
+
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import Trainer, active_group, group_mask, ramp_stage_for_epoch
+    from lshm_tpu_torch.utils import MetricLogger, restore_checkpoint
+
+    cfg = lbfgs_config(tmpdir)
+    logger = MetricLogger(echo=False)
+    trainer = Trainer(cfg, device=dev, logger=logger)
+    sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+    reset_launches()
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        trainer.run(sampler)
+    wall = time.perf_counter() - t0
+    total = {k: launch_counts()[k] for k in ADAM_PATH}
+    nadmm = cfg.train.admm_iters
+    epochs = []
+    if len(clock.steps) != cfg.train.num_epochs:
+        raise AssertionError(f"expected one step per epoch, got {len(clock.steps)}")
+    for e, st in enumerate(clock.steps):      # one minibatch per epoch
+        a, b = st["before"], st["after"]
+        kind = ramp_stage_for_epoch(cfg.train.ramp, e).optimizer
+        group = active_group(cfg.optim.group_schedule, e)
+        launches = {k: b["counts"][k] - a["counts"][k] for k in ADAM_PATH}
+        evals, syncs = b["func_evals"] - a["func_evals"], b["syncs"] - a["syncs"]
+        ms = st["ms"] / nadmm
+        rec = logger.history[e]
+        row = {"phase": "lbfgs", "epoch": e, "kind": kind, "group": group,
+               "patches": rec["patches"], "ms_per_admm_iter": ms,
+               "loss": rec["loss"], "peak_mem_gb": st["peak"] / 1e9, "launches": launches}
+        if kind == "lbfgs":
+            row.update(func_evals_per_admm_iter=evals / nadmm,
+                       ms_per_closure_eval=ms / (evals / nadmm) if evals else None,
+                       host_syncs_per_admm_iter=syncs / nadmm)
+        # frozen groups' parameters unchanged bit for bit across the epoch
+        mask = group_mask(a["params"], group)
+        row["frozen_unchanged"] = all(
+            torch.equal(a["params"][n], b["params"][n]) for n, m in mask.items() if not m)
+        row["active_moved"] = any(
+            not torch.equal(a["params"][n], b["params"][n]) for n, m in mask.items() if m)
+        emit(row)
+        epochs.append(row)
+        if rec["patches"] != PATCHES or not all(math.isfinite(v) for k, v in rec.items()
+                                            if k not in ("epoch", "iter", "t")):
+            raise AssertionError(f"expected finite losses on {PATCHES} patches: {rec}")
+        if not row["frozen_unchanged"] or not row["active_moved"]:
+            raise AssertionError(f"group freeze broken in epoch {e}: {row}")
+        if kind == "lbfgs" and evals <= 0:
+            raise AssertionError(f"L-BFGS made no closure evaluation in epoch {e}")
+        if kind == "lbfgs" and group == "ae2d" and launches["head_bwd"] == 0:
+            raise AssertionError(f"K4 did not run in the L-BFGS ae2d epoch: {row}")
+    kinds = [r["kind"] for r in epochs]
+    if kinds != ["adam", "lbfgs", "lbfgs", "lbfgs"]:
+        raise AssertionError(f"expected Adam then L-BFGS epochs, got {kinds}")
+    missing = [k for k in ADAM_PATH if total[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the L-BFGS path: {missing}")
+    saved, _ = restore_checkpoint(tmpdir)
+    emit({"phase": "lbfgs_summary", "wall_s": wall, "launches": total,
+          "prefetch": cfg.data.prefetch,
+          "checkpoint": sorted(os.listdir(tmpdir)), "opt_kind": saved["opt_kind"],
+          "checkpoint_func_evals": saved["optimizer"]["func_evals"]})
+    if saved["opt_kind"] != ["lbfgs", "ae2d"] or "s_hist" not in saved["optimizer"]:
+        raise AssertionError("the checkpoint does not hold the L-BFGS state")
+    return total
+
+
+def agree_lbfgs_phase(dev, tree) -> None:
+    import dataclasses
+
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.optim import value_and_grad
+    from lshm_tpu_torch.train import (
+        Duals,
+        LossWeights,
+        active_params,
+        init_lbfgs_train_state,
+        lbfgs_objective,
+        make_lbfgs_train_step,
+        metrics_and_dual_update,
+    )
+
+    cfg_k = lbfgs_config()
+    cfg_k = dataclasses.replace(cfg_k, train=dataclasses.replace(cfg_k.train, admm_iters=1))
+    cfg_p = dataclasses.replace(cfg_k, model=dataclasses.replace(
+        cfg_k.model, khm_backend="xla", pallas_head=False))
+    mb = MinibatchSampler([tree], ["0"], cfg_k.data, seed=13).sample()
+    x, uv = torch.from_numpy(mb.x).to(dev), torch.from_numpy(mb.uv).to(dev)
+    w = LossWeights(alpha=0.01, beta=0.01, gamma=0.01)
+    closure, launched, steps, duals = {}, {}, {}, None
+    for name, cfg in (("kernels", cfg_k), ("plain", cfg_p)):
+        state = init_lbfgs_train_state(cfg, dev, "all")    # same seed: same weights
+        model = state.model
+        if duals is None:    # non-zero duals: one dual update from the initial weights
+            _, duals = metrics_and_dual_update(model, x, uv, Duals.zeros_like(x), w,
+                                               mb.num_baselines)
+        value_fn = lbfgs_objective(cfg, mb.num_baselines)
+        vg = value_and_grad(value_fn)
+        params = active_params(model, "all")
+        reset_launches()
+        closure[name] = vg(params, model, {}, x, uv, duals, w)
+        torch.cuda.synchronize()
+        launched[name] = {k: launch_counts()[k] for k in ADAM_PATH}
+        if name == "kernels":
+            def probe():
+                with torch.no_grad():
+                    return value_fn(params, model, {}, x, uv, duals, w)
+            timing = {"value_and_grad_ms": host_ms(
+                          lambda: vg(params, model, {}, x, uv, duals, w)),
+                      "value_only_probe_ms": host_ms(probe)}
+        step = make_lbfgs_train_step(cfg, mb.num_baselines, "all")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, x, uv, w)
+        loss = float(m["loss"][-1])
+        steps[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                       "func_evals": state.opt.func_evals,
+                       "host_syncs": state.opt.host_syncs, "loss": loss}
+    (vk, gk), (vp, gp) = closure["kernels"], closure["plain"]
+    grad_err = {n: rel_err(gk[n], gp[n]) for n in gp}
+    worst = max(grad_err, key=grad_err.get)
+    row = {"phase": "agree_lbfgs", "value_rel_err": rel_err(vk, vp),
+           "grad_rel_err_max": grad_err[worst], "grad_worst": worst,
+           "closure_launches": launched, "closure_kernels": timing, "step": steps}
+    emit(row)
+    # the kernel side went through K1-K4, the plain side through none of them
+    if (any(launched["kernels"][k] == 0 for k in ADAM_PATH)
+            or any(launched["plain"][k] != 0 for k in ADAM_PATH)):
+        raise AssertionError(f"the closures did not take their paths: {launched}")
+    if row["value_rel_err"] > 1e-4 or row["grad_rel_err_max"] > 2e-4:
+        raise AssertionError("the L-BFGS closure disagrees between kernels and plain path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -320,18 +624,29 @@ def main() -> int:
                                             ["visibilities"].shape[0]),
           "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as tmpdir:
-        counts = trainer_phase(tree, tmpdir)
+        adam = trainer_phase(tree, tmpdir)
         agree_phase(tree, tmpdir)
+    head = head_input_grad_phase(dev)
+    probe, k6_row = conv0_probe_phase(dev)
+    kernels.append(k6_row)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        lbfgs = lbfgs_phase(dev, tree, tmpdir)
+    agree_lbfgs_phase(dev, tree)
 
+    # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; their
+    # counts on the L-BFGS trainer beside), K5 EncHead's backward w.r.t. its input,
+    # K6 the probe tool
+    paths = {"head_dx": ("head_input_grad", head), "conv0": ("conv0_probe", probe)}
     for k in kernels:
-        k["launches"] = counts[k.pop("counter")]
+        counter = k.pop("counter")
+        path, counts = paths.get(counter, ("trainer", adam))
+        k["launches"] = counts[counter]
+        k["path"] = path
+        k["on_main_path"] = path == "trainer"
+        if counter in lbfgs:
+            k["launches_lbfgs"] = lbfgs[counter]
         k["status"] = "ported, held against its plain version"
-    emit({"kernels": kernels, "still_to_port": [
-        {"name": "K5 head_dx", "replaces": "lshm_tpu/kernels/conv2d_outer.py:404",
-         "status": "still to port (ROADMAP queue B); off the training path"},
-        {"name": "K6 conv0 probe", "replaces": "benchmarks/pallas_conv_probe.py:56",
-         "status": "still to port (ROADMAP queue B); a benchmark script's probe"},
-    ]})
+    emit({"kernels": kernels, "still_to_port": []})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

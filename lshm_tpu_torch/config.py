@@ -165,7 +165,8 @@ class LBFGSConfig:
     # full-batch configs (tests use up to 50), and the unrolled lowering buys no
     # measured throughput.  Kept as a bit-parity-tested alternative lowering
     # (tests/test_lbfgs.py::test_unroll_outer_matches_while).
-    unroll_outer: bool = False
+    unroll_outer: bool = False        # the port's eager loop is its one lowering:
+                                      # accepted, no effect (lshm_tpu_torch/optim/lbfgs.py)
     # Keep gradient machinery enabled during line-search probes (reference:
     # src/lbfgsnew.py:61-69,686-693).  In the reference this is required when the cost
     # itself consumes gradients (e.g. a gradient-norm regularizer) because probes run
@@ -261,7 +262,7 @@ class TrainConfig:
     # to lower the L-BFGS ADMM loop as one lax.scan: same math and speed,
     # admm_iters-independent compile (the full-recipe default via the
     # full_khm_lbfgs preset and benchmarks/recipe_run.py).
-    admm_unroll_lbfgs: bool | None = None
+    admm_unroll_lbfgs: bool | None = None   # the port: accepted, no effect (as admm_unroll)
     skip_nonfinite: bool = True       # drop minibatches whose step produced NaN/Inf loss
                                       # (keep previous state) — the explicit version of
                                       # the reference's scattered NaN tolerance
@@ -314,8 +315,6 @@ def check_supported(cfg: Config) -> None:
     check_model_supported(cfg.model)
     t = cfg.train
     _raise_unsupported(cfg, "", [
-        ("optim.optimizer", cfg.optim.optimizer == "lbfgs"),
-        ("train.ramp", any(s.optimizer == "lbfgs" for s in t.ramp)),
         ("train.mesh_shape", tuple(t.mesh_shape) not in ((), (1,))),
         ("train.remat", t.remat),
         ("data.device_decode", cfg.data.device_decode is True),

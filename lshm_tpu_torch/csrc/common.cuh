@@ -54,4 +54,64 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// ---- the 2D AE's first stage: a k=4, s=2, p=1 convolution of C -> F channels ----
+// Shared by the fused head (conv_head.cu: K3, K4, K5) and the standalone stage
+// (conv0.cu: K6), so every kernel sums the taps in the same (ky, kx, c) order.
+
+// w [F, C, 4, 4] (OIHW) -> ws [tap][c][f], tap = ky * 4 + kx; b [F] -> bs.
+template <int C, int F>
+__device__ void load_conv_s2_weights(const float* __restrict__ w,
+                                     const float* __restrict__ b, float* ws, float* bs) {
+  for (int i = threadIdx.x; i < 16 * C * F; i += blockDim.x) {   // i = OIHW index
+    const int tap = i % 16, c = (i / 16) % C, f = i / (16 * C);
+    ws[(tap * C + c) * F + f] = w[i];
+  }
+  for (int i = threadIdx.x; i < F; i += blockDim.x) bs[i] = b[i];
+}
+
+// Input window [XW, XW, C] of sample n with rows [iy0, iy0 + XW) and columns
+// [ix0, ix0 + XW) of the image x [B, P, P, C] (NHWC); zero outside the image.
+template <int C, int XW>
+__device__ void load_window(const float* __restrict__ x, int P, int n, int iy0, int ix0,
+                            float* xw) {
+  static_assert(C % 4 == 0, "whole float4 pixels");
+  for (int i = threadIdx.x; i < XW * XW; i += blockDim.x) {
+    const int iy = iy0 + i / XW, ix = ix0 + i % XW;
+    float4* dst = reinterpret_cast<float4*>(xw + i * C);
+    if (iy >= 0 && iy < P && ix >= 0 && ix < P) {
+      const float4* src =
+          reinterpret_cast<const float4*>(x + (((size_t)n * P + iy) * P + ix) * C);
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) dst[q] = src[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// acc[f] = sum_{ky, kx, c} xw[2 py + ky, 2 px + kx, c] * ws[tap][c][f]: the
+// pre-activation (without bias) of the output whose 4 x 4 input patch starts at
+// window position (2 py, 2 px).
+template <int C, int F, int XW>
+__device__ __forceinline__ void conv_s2_taps(const float* xw, const float* ws, int py,
+                                             int px, float acc[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int ky = 0; ky < 4; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < 4; ++kx) {
+      const float* xp = xw + ((2 * py + ky) * XW + 2 * px + kx) * C;
+      const float* wp = ws + (ky * 4 + kx) * C * F;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float xv = xp[c];
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] += xv * wp[c * F + f];
+      }
+    }
+  }
+}
+
 }  // namespace lshm

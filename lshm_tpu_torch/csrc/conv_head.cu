@@ -1,7 +1,9 @@
 // Fused 2D-AE encoder head for sm_90a: elu(conv1(elu(conv0(x) + b0)) + b1), both
-// convolutions k=4, s=2, p=1 — forward (K3) and weight-gradient backward (K4).
+// convolutions k=4, s=2, p=1 — forward (K3), weight-gradient backward (K4) and
+// input-gradient backward (K5).
 //
-// Replaces lshm_tpu/kernels/conv2d_outer.py::_fwd_kernel and ::_bwd_kernel.
+// Replaces lshm_tpu/kernels/conv2d_outer.py::_fwd_kernel, ::_bwd_kernel and
+// ::_dx_kernel.
 //
 // Layouts: x NHWC [B, P, P, C] (the data layout, read 16 B a pixel), weights in
 // PyTorch's OIHW (w0 [F0, C, 4, 4], w1 [F1, F0, 4, 4]), output NHWC [B, P/4, P/4, F1].
@@ -15,9 +17,10 @@
 // to device memory.  Stage-0 positions outside the image are conv1's zero padding and
 // are stored as 0, not elu(b0) — the TPU kernel zeroes the same borders.  The TPU
 // kernel's double space-to-depth packing only worked around Mosaic's missing strided
-// slices and is not needed here: the block reads the strided taps directly.
+// slices and is not needed here: the block reads the strided taps directly.  The
+// stage-0 helpers are in common.cuh, shared with the standalone stage (conv0.cu).
 //
-// Backward (weights only): a fixed grid of blocks walks the tiles in a fixed order.
+// Backward, weights (K4): a fixed grid of blocks walks the tiles in a fixed order.
 // Per tile it recomputes both stages, forms dpre1 = g1 * elu'(a1), accumulates dW1
 // and db1, back-propagates to the 18 x 18 stage-0 tile through w1, multiplies by
 // elu'(a0) (zero on the padding ring) and accumulates dW0 and db0.  Partitioning over
@@ -25,12 +28,25 @@
 // position's gradient, so nothing is counted twice.  Each block keeps its sums in
 // shared memory (each entry owned by one thread) and writes one row of partials
 // [nblocks, 2068 for C = 4]; a second pass adds the rows in a fixed order, so two
-// runs are bit-identical.  The input gradient (K5) is not computed here.
+// runs are bit-identical.
+//
+// Backward, input (K5), in two passes, each element a gather with no float atomics
+// (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
+// two runs are bit-identical:
+//   1. dpre1 = g1 * elu'(a1) [B, P/4, P/4, F1] to device memory (20.6 MB at B = 420):
+//      the forward kernel with another epilogue.
+//   2. One block per 32 x 32 input tile.  Its inputs reach stage-0 positions of the
+//      same 18 x 18 halo tile as the forward's, which reach a 10 x 10 tile of dpre1.
+//      The block stages the 38 x 38 window, recomputes elu'(a0) on the halo tile,
+//      gathers dpre0 = elu'(a0) * conv1^T(dpre1) there (zero on the padding ring) and
+//      gathers dx = conv0^T(dpre0) for its 32 x 32 x C inputs.
 //
 // Bound on the H100 at the main path's shapes (B=420, P=128, C=4): the forward reads
 // 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP (46 us at
-// 67 TFLOP/s FP32 without tensor cores), so it is bound by operations; the backward
-// reads 130.7 MB and does 7.5 GFLOP (112 us), also bound by operations.
+// 67 TFLOP/s FP32 without tensor cores), so it is bound by operations; the weight
+// backward reads 130.7 MB and does 7.5 GFLOP (112 us), also bound by operations; the
+// input backward moves 240.8 MB (72 us) and does 6.17 GFLOP (92 us), bound by
+// operations.
 
 #include "common.cuh"
 
@@ -41,6 +57,8 @@ constexpr int kF1 = 12;
 constexpr int kT1 = 8;                 // stage-1 tile edge
 constexpr int kT0 = 2 * kT1 + 2;       // stage-0 tile edge incl. halo: 18
 constexpr int kXW = 2 * kT0 + 2;       // input window edge: 38
+constexpr int kTD = kT1 + 2;           // dpre1 tile edge of the input backward: 10
+constexpr int kTX = 4 * kT1;           // input tile edge of the input backward: 32
 constexpr int kThreads = 256;
 constexpr int kBwdBlocks = 264;        // fixed, so the summation order never changes
 constexpr int kGroups = kThreads / (kT1 * kT1);   // 4 channel groups in stage 1
@@ -53,6 +71,7 @@ struct Layout {
   static constexpr int w0 = 16 * C * kF0;           // [tap][c][f0]
   static constexpr int w1 = 16 * kF0 * kF1;         // [tap][f0][f1]
   static constexpr int s0 = kT0 * kT0 * kF0;        // stage-0 tile
+  static constexpr int dp = kTD * kTD * kF1;        // dpre1 tile of the input backward
   static constexpr int nacc = 16 * C * kF0 + kF0 + 16 * kF0 * kF1 + kF1;
   // offsets of the gradient vector [dW0 (OIHW) | db0 | dW1 (OIHW) | db1]
   static constexpr int oW0 = 0, oB0 = 16 * C * kF0, oW1 = oB0 + kF0,
@@ -60,6 +79,8 @@ struct Layout {
   static constexpr size_t fwd_bytes = sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + s0);
   static constexpr size_t bwd_bytes =
       sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + 2 * s0 + kT1 * kT1 * kF1 + nacc);
+  static constexpr size_t dx_bytes =
+      sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + 2 * s0 + dp);
 };
 
 struct Tile {
@@ -79,35 +100,18 @@ template <int C>
 __device__ void load_weights(const float* __restrict__ w0, const float* __restrict__ b0,
                              const float* __restrict__ w1, const float* __restrict__ b1,
                              float* w0s, float* b0s, float* w1s, float* b1s) {
-  for (int i = threadIdx.x; i < 16 * C * kF0; i += blockDim.x) {   // i = OIHW index
-    const int tap = i % 16, c = (i / 16) % C, f = i / (16 * C);
-    w0s[(tap * C + c) * kF0 + f] = w0[i];
-  }
+  lshm::load_conv_s2_weights<C, kF0>(w0, b0, w0s, b0s);
   for (int i = threadIdx.x; i < 16 * kF0 * kF1; i += blockDim.x) {
     const int tap = i % 16, f0 = (i / 16) % kF0, f1 = i / (16 * kF0);
     w1s[(tap * kF0 + f0) * kF1 + f1] = w1[i];
   }
-  if (threadIdx.x < kF0) b0s[threadIdx.x] = b0[threadIdx.x];
   if (threadIdx.x < kF1) b1s[threadIdx.x] = b1[threadIdx.x];
 }
 
 // Input window rows/cols [32 ty - 3, 32 ty + 35) of sample n; zero outside the image.
 template <int C>
 __device__ void load_window(const float* __restrict__ x, int P, Tile t, float* xw) {
-  const int iy0 = 32 * t.ty - 3, ix0 = 32 * t.tx - 3;
-  for (int i = threadIdx.x; i < kXW * kXW; i += blockDim.x) {
-    const int iy = iy0 + i / kXW, ix = ix0 + i % kXW;
-    float4* dst = reinterpret_cast<float4*>(xw + i * C);
-    if (iy >= 0 && iy < P && ix >= 0 && ix < P) {
-      const float4* src =
-          reinterpret_cast<const float4*>(x + (((size_t)t.n * P + iy) * P + ix) * C);
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q) dst[q] = src[q];
-    } else {
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
+  lshm::load_window<C, kXW>(x, P, t.n, 32 * t.ty - 3, 32 * t.tx - 3, xw);
 }
 
 // Stage 0 on the 18 x 18 tile: e0 = elu(a0) inside the image, 0 on the padding ring;
@@ -128,22 +132,7 @@ __device__ void stage0(const float* xw, const float* w0s, const float* b0s, int 
       continue;
     }
     float acc[kF0];
-#pragma unroll
-    for (int f = 0; f < kF0; ++f) acc[f] = 0.0f;
-#pragma unroll
-    for (int ky = 0; ky < 4; ++ky) {
-#pragma unroll
-      for (int kx = 0; kx < 4; ++kx) {
-        const float* xp = xw + ((2 * py + ky) * kXW + 2 * px + kx) * C;
-        const float* wp = w0s + (ky * 4 + kx) * C * kF0;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float xv = xp[c];
-#pragma unroll
-          for (int f = 0; f < kF0; ++f) acc[f] += xv * wp[c * kF0 + f];
-        }
-      }
-    }
+    lshm::conv_s2_taps<C, kF0, kXW>(xw, w0s, py, px, acc);
 #pragma unroll
     for (int f = 0; f < kF0; ++f) {
       const float a = acc[f] + b0s[f];
@@ -187,11 +176,14 @@ __device__ __forceinline__ size_t out_index(Tile t, int H1) {
   return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + grp * kPerGroup;
 }
 
-template <int C>
+// kDpre1 = false: out = elu(a1) (K3).  kDpre1 = true: out = g1 * elu'(a1), the first
+// pass of the input backward (K5).
+template <int C, bool kDpre1>
 __global__ void __launch_bounds__(kThreads)
 head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                 const float* __restrict__ b0, const float* __restrict__ w1,
-                const float* __restrict__ b1, int P, int tps, float* __restrict__ out) {
+                const float* __restrict__ b1, const float* __restrict__ g1, int P, int tps,
+                float* __restrict__ out) {
   using L = Layout<C>;
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
@@ -208,9 +200,10 @@ head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   __syncthreads();
   float a1[kPerGroup];
   if (stage1(e0, w1s, b1s, P / 4, t, a1)) {
-    float* o = out + out_index(t, P / 4);
+    const size_t o = out_index(t, P / 4);
 #pragma unroll
-    for (int j = 0; j < kPerGroup; ++j) o[j] = lshm::elu(a1[j]);
+    for (int j = 0; j < kPerGroup; ++j)
+      out[o + j] = kDpre1 ? g1[o + j] * lshm::elu_grad(a1[j]) : lshm::elu(a1[j]);
   }
 }
 
@@ -317,17 +310,100 @@ head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   for (int i = tid; i < L::nacc; i += blockDim.x) out[i] = acc[i];
 }
 
+// Second pass of the input backward: one block per 32 x 32 input tile (tile (ty, tx)
+// covers the inputs of stage-1 tile (ty, tx)).  Halo coordinates: stage-0 position
+// py <-> row 16 ty - 1 + py, dpre1 position qy <-> row 8 ty - 1 + qy.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+head_dx_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+               const float* __restrict__ b0, const float* __restrict__ w1,
+               const float* __restrict__ b1, const float* __restrict__ dpre1, int P,
+               int tps, float* __restrict__ dx) {
+  using L = Layout<C>;
+  extern __shared__ float4 smem4[];
+  float* xw = reinterpret_cast<float*>(smem4);
+  float* w0s = xw + L::xw;
+  float* b0s = w0s + L::w0;
+  float* w1s = b0s + kF0;
+  float* b1s = w1s + L::w1;
+  float* e0 = b1s + kF1;                  // elu(a0): computed, not used
+  float* d0 = e0 + L::s0;                 // elu'(a0), then dpre0 in place
+  float* dp1 = d0 + L::s0;                // [10, 10, F1] dpre1, 0 outside the image
+  const int H1 = P / 4;
+  const int tid = threadIdx.x;
+  const Tile t = decode_tile(blockIdx.x, tps);
+
+  load_weights<C>(w0, b0, w1, b1, w0s, b0s, w1s, b1s);
+  load_window<C>(x, P, t, xw);
+  for (int i = tid; i < L::dp; i += blockDim.x) {
+    const int f1 = i % kF1, q = i / kF1;
+    const int oy = kT1 * t.ty - 1 + q / kTD, ox = kT1 * t.tx - 1 + q % kTD;
+    dp1[i] = (oy >= 0 && oy < H1 && ox >= 0 && ox < H1)
+                 ? dpre1[(((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + f1]
+                 : 0.0f;
+  }
+  __syncthreads();
+  stage0<C>(xw, w0s, b0s, P / 2, t, e0, d0);
+  __syncthreads();
+
+  // dpre0[py, px, f0] = elu'(a0) * sum over the taps that reach it (ky = py mod 2)
+  for (int i = tid; i < L::s0; i += blockDim.x) {
+    const int f0 = i % kF0, pos = i / kF0;
+    const int py = pos / kT0, px = pos % kT0;
+    float s = 0.0f;
+    for (int ky = py & 1; ky < 4; ky += 2) {
+      const int qy = (py + 2 - ky) / 2;
+      for (int kx = px & 1; kx < 4; kx += 2) {
+        const int qx = (px + 2 - kx) / 2;
+        const float* dp = dp1 + (qy * kTD + qx) * kF1;
+        const float* wp = w1s + ((ky * 4 + kx) * kF0 + f0) * kF1;
+#pragma unroll
+        for (int f1 = 0; f1 < kF1; ++f1) s += dp[f1] * wp[f1];
+      }
+    }
+    d0[i] = s * d0[i];
+  }
+  __syncthreads();
+
+  // dx[ry, rx, c] = sum over the taps that reach it (ky = ry + 1 mod 2) and f0
+  for (int i = tid; i < kTX * kTX; i += blockDim.x) {
+    const int ry = i / kTX, rx = i % kTX;
+    const int iy = kTX * t.ty + ry, ix = kTX * t.tx + rx;
+    if (iy >= P || ix >= P) continue;
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+    for (int ky = (ry + 1) & 1; ky < 4; ky += 2) {
+      const int py = (ry + 3 - ky) / 2;
+      for (int kx = (rx + 1) & 1; kx < 4; kx += 2) {
+        const int px = (rx + 3 - kx) / 2;
+        const float* dp = d0 + (py * kT0 + px) * kF0;
+        const float* wp = w0s + (ky * 4 + kx) * C * kF0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int f0 = 0; f0 < kF0; ++f0) acc[c] += dp[f0] * wp[c * kF0 + f0];
+        }
+      }
+    }
+    float4* o = reinterpret_cast<float4*>(dx + (((size_t)t.n * P + iy) * P + ix) * C);
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q)
+      o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  }
+}
+
 int tiles_per_side(int P) { return (P / 4 + kT1 - 1) / kT1; }
 
-template <int C>
+template <int C, bool kDpre1>
 int fwd(const float* x, const float* w0, const float* b0, const float* w1, const float* b1,
-        int B, int P, float* out, cudaStream_t stream) {
+        const float* g1, int B, int P, float* out, cudaStream_t stream) {
   using L = Layout<C>;
-  cudaError_t err = lshm::allow_smem(head_fwd_kernel<C>, L::fwd_bytes);
+  cudaError_t err = lshm::allow_smem(head_fwd_kernel<C, kDpre1>, L::fwd_bytes);
   if (err != cudaSuccess) return (int)err;
   const int tps = tiles_per_side(P);
-  head_fwd_kernel<C><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(x, w0, b0, w1, b1,
-                                                                        P, tps, out);
+  head_fwd_kernel<C, kDpre1><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(
+      x, w0, b0, w1, b1, g1, P, tps, out);
   return (int)cudaGetLastError();
 }
 
@@ -346,6 +422,21 @@ int bwd(const float* x, const float* w0, const float* b0, const float* w1, const
   return (int)cudaGetLastError();
 }
 
+template <int C>
+int dx_pass(const float* x, const float* w0, const float* b0, const float* w1,
+            const float* b1, const float* g1, int B, int P, float* dpre1, float* dx,
+            cudaStream_t stream) {
+  using L = Layout<C>;
+  const int first = fwd<C, true>(x, w0, b0, w1, b1, g1, B, P, dpre1, stream);
+  if (first != 0) return first;
+  cudaError_t err = lshm::allow_smem(head_dx_kernel<C>, L::dx_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tps = tiles_per_side(P);
+  head_dx_kernel<C><<<B * tps * tps, kThreads, L::dx_bytes, stream>>>(
+      x, w0, b0, w1, b1, dpre1, P, tps, dx);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -361,8 +452,8 @@ int head_bwd_blocks(int B, int P) {
 // x [B, P, P, C] NHWC, P % 4 == 0, C in {4, 8}; out [B, P/4, P/4, 12] NHWC.
 int head_fwd(const float* x, const float* w0, const float* b0, const float* w1,
              const float* b1, int B, int P, int C, float* out, cudaStream_t stream) {
-  if (C == 4) return fwd<4>(x, w0, b0, w1, b1, B, P, out, stream);
-  if (C == 8) return fwd<8>(x, w0, b0, w1, b1, B, P, out, stream);
+  if (C == 4) return fwd<4, false>(x, w0, b0, w1, b1, nullptr, B, P, out, stream);
+  if (C == 8) return fwd<8, false>(x, w0, b0, w1, b1, nullptr, B, P, out, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -373,6 +464,15 @@ int head_bwd(const float* x, const float* w0, const float* b0, const float* w1,
              float* grads, cudaStream_t stream) {
   if (C == 4) return bwd<4>(x, w0, b0, w1, b1, g1, B, P, partial, grads, stream);
   if (C == 8) return bwd<8>(x, w0, b0, w1, b1, g1, B, P, partial, grads, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g1 [B, P/4, P/4, 12] NHWC; dpre1 scratch like g1; dx [B, P, P, C] like x.
+int head_dx(const float* x, const float* w0, const float* b0, const float* w1,
+            const float* b1, const float* g1, int B, int P, int C, float* dpre1, float* dx,
+            cudaStream_t stream) {
+  if (C == 4) return dx_pass<4>(x, w0, b0, w1, b1, g1, B, P, dpre1, dx, stream);
+  if (C == 8) return dx_pass<8>(x, w0, b0, w1, b1, g1, B, P, dpre1, dx, stream);
   return (int)cudaErrorInvalidValue;
 }
 

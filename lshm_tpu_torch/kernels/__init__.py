@@ -5,11 +5,11 @@ dict counting the CUDA launches; ``reset_launches`` and ``launch_counts`` let a 
 show that the main path went through the kernels.
 """
 
-from lshm_tpu_torch.kernels import conv_head, khm
+from lshm_tpu_torch.kernels import conv0, conv_head, khm
 from lshm_tpu_torch.kernels.conv_head import enc_head
 from lshm_tpu_torch.kernels.khm import khm_loss_fused
 
-_MODULES = (khm, conv_head)
+_MODULES = (khm, conv_head, conv0)
 
 
 def reset_launches() -> None:

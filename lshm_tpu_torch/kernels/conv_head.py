@@ -1,21 +1,22 @@
-"""Fused 2D-AE encoder head: elu(conv1(elu(conv0(x) + b0)) + b1) (kernels K3 and K4).
+"""Fused 2D-AE encoder head: elu(conv1(elu(conv0(x) + b0)) + b1) (kernels K3, K4, K5).
 
-Replaces ``lshm_tpu/kernels/conv2d_outer.py``: ``_fwd_kernel`` (K3) and
-``_bwd_kernel`` (K4), reached there through ``enc_head``.  Both convolutions are
-k=4, s=2, p=1 (the reference encoder's two outermost stages, reference:
+Replaces ``lshm_tpu/kernels/conv2d_outer.py``: ``_fwd_kernel`` (K3), ``_bwd_kernel``
+(K4) and ``_dx_kernel`` (K5), reached there through ``enc_head``.  Both convolutions
+are k=4, s=2, p=1 (the reference encoder's two outermost stages, reference:
 src/lofar_models.py:31-34).  The CUDA source is ``lshm_tpu_torch/csrc/conv_head.cu``;
-its header comment gives the tiling and the bound.
+its header comment gives the tiling and the bounds.
 
 Layouts: x NHWC [B, P, P, C] (the data layout), weights in PyTorch's OIHW with their
-biases, output NHWC [B, P/4, P/4, 12] as in the JAX function.  ``head_forward`` and
-``head_weight_grads`` are the kernel wrappers: CUDA kernel for a CUDA tensor, the
-plain PyTorch version beside them for a CPU tensor.  The input gradient (the TPU's
-``_dx_kernel``, K5) is not ported: on a CUDA tensor ``EncHead`` raises when a caller
-needs it.  The 2D AE's input is data, so the training path never does.
+biases, output NHWC [B, P/4, P/4, 12] as in the JAX function.  ``head_forward``,
+``head_weight_grads`` and ``head_input_grad`` are the kernel wrappers: CUDA kernel for
+a CUDA tensor, the plain PyTorch version beside them for a CPU tensor.  ``EncHead``'s
+backward runs K5 only when the caller needs the input's gradient and K4 only when it
+needs the weights': the 2D AE's input is data, so training runs K4 alone.
 
 Bound on the H100 at B=420, P=128, C=4: forward 3.08 GFLOP (46 us at 67 TFLOP/s
-FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; backward 7.5 GFLOP
-(112 us), bound by operations.
+FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; weight backward
+7.5 GFLOP (112 us), bound by operations; input backward 6.17 GFLOP (92 us) over
+240.8 MB (72 us), bound by operations.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from lshm_tpu_torch.kernels import _build
 
 F0, F1 = 8, 12                     # the ladder's first two widths
 # launches of each CUDA kernel since the last reset (kernels.reset_launches)
-launches = {"head_fwd": 0, "head_bwd": 0}
+launches = {"head_fwd": 0, "head_bwd": 0, "head_dx": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -44,6 +45,8 @@ def _lib() -> ctypes.CDLL:
     lib.head_fwd.restype = _I
     lib.head_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
     lib.head_bwd.restype = _I
+    lib.head_dx.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+    lib.head_dx.restype = _I
     return lib
 
 
@@ -136,8 +139,27 @@ def head_weight_grads(x, w0, b0, w1, b1, g1):
     return dw0.view(w0.shape), db0, dw1.view(w1.shape), db1
 
 
+def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
+    """K5: dx (NHWC, like x) for the output cotangent g1 (NHWC)."""
+    B, P, C = _check_inputs(x, w0, b0, w1, b1)
+    _check("g1", g1, (B, P // 4, P // 4, F1), x.device)
+    if x.device.type == "cpu":
+        return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0]
+    lib = _lib()
+    dx = torch.empty_like(x)
+    dpre1 = torch.empty_like(g1)       # first pass: g1 * elu'(a1)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.head_dx(x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+                                 w1.data_ptr(), b1.data_ptr(), g1.data_ptr(), B, P, C,
+                                 dpre1.data_ptr(), dx.data_ptr(), stream), "head_dx")
+    launches["head_dx"] += 1
+    return dx
+
+
 class EncHead(torch.autograd.Function):
-    """The head with a backward that rematerialises both stages (K4)."""
+    """The head with a backward that rematerialises both stages: K5 for the input's
+    gradient, K4 for the weights', each only when asked for."""
 
     @staticmethod
     def forward(ctx, x, w0, b0, w1, b1):
@@ -148,13 +170,11 @@ class EncHead(torch.autograd.Function):
     def backward(ctx, g1):
         x, w0, b0, w1, b1 = ctx.saved_tensors
         g1 = g1.contiguous()
-        if ctx.needs_input_grad[0]:
-            if x.device.type == "cuda":
-                raise NotImplementedError(
-                    "K5 not ported: the conv head's input gradient "
-                    "(lshm_tpu/kernels/conv2d_outer.py::_dx_kernel)")
-            return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)
-        return (None, *head_weight_grads(x, w0, b0, w1, b1, g1))
+        dx = (head_input_grad(x, w0, b0, w1, b1, g1)
+              if ctx.needs_input_grad[0] else None)
+        dw = (head_weight_grads(x, w0, b0, w1, b1, g1)
+              if any(ctx.needs_input_grad[1:]) else (None,) * 4)
+        return (dx, *dw)
 
 
 def enc_head(x, w0, b0, w1, b1) -> torch.Tensor:

@@ -11,7 +11,9 @@ branch of ``lshm_tpu/train/objective.py``; reference: src/kharmonic_lofar.py:132
     rica  = lambda * sum of mean log-cosh of the three sparse latents
 
 with the Lagrange-multiplier update y_k <- y_k + rho * residual_k after each optimizer
-step, from a fresh forward pass at the new parameters.
+step, from a fresh forward pass at the new parameters (``dual_update`` for the Adam
+step; ``metrics_and_dual_update``, the port of the JAX function of that name, shares
+that forward with the metrics for the L-BFGS step).
 """
 
 from __future__ import annotations
@@ -55,14 +57,13 @@ class Duals:
         return cls(y1=z, y2=z, y3=z)
 
 
-def cascade_objective(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
-                      w: LossWeights, num_groups: int, use_rica: bool = True,
-                      khm_order: int = 4, khm_backend: str = "auto"):
-    """Returns (total_loss, metrics).  ``num_groups`` = baselines in the minibatch
-    (augmentation groups are baseline-major).  ``khm_backend`` "pallas"/"auto" takes
-    the fused KHM kernel, "xla" the plain expression."""
-    out = model(x, uv)
-    M = model.khm.M
+def loss_from_outputs(out, M: torch.Tensor, x: torch.Tensor, duals: Duals, w: LossWeights,
+                      num_groups: int, use_rica: bool = True, khm_order: int = 4,
+                      khm_backend: str = "auto"):
+    """The objective as a function of one forward's outputs and the centroids M:
+    (total_loss, metrics).  ``num_groups`` = baselines in the minibatch (augmentation
+    groups are baseline-major).  ``khm_backend`` "pallas"/"auto" takes the fused KHM
+    kernel, "xla" the plain expression."""
     numel = x.numel()
     metrics = {
         "loss0": mse_sum(out.xrecon, x) / numel,
@@ -80,13 +81,39 @@ def cascade_objective(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
     return total, metrics
 
 
-@torch.no_grad()
-def dual_update(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals, rho: float) -> Duals:
-    """y_k <- y_k + rho * residual_k with a fresh (post-step) forward pass
-    (reference: src/kharmonic_lofar.py:186-202)."""
-    out = model(x, uv)
+def cascade_objective(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
+                      w: LossWeights, num_groups: int, use_rica: bool = True,
+                      khm_order: int = 4, khm_backend: str = "auto"):
+    """Returns (total_loss, metrics) of one forward of ``model``."""
+    return loss_from_outputs(model(x, uv), model.khm.M, x, duals, w, num_groups,
+                             use_rica=use_rica, khm_order=khm_order,
+                             khm_backend=khm_backend)
+
+
+def _updated(out, x: torch.Tensor, duals: Duals, rho: float) -> Duals:
     return Duals(
         y1=duals.y1 + rho * (x - out.x1),
         y2=duals.y2 + rho * (out.x11 - out.x2),
         y3=duals.y3 + rho * (out.x11 - out.x3),
     )
+
+
+@torch.no_grad()
+def dual_update(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals, rho: float) -> Duals:
+    """y_k <- y_k + rho * residual_k with a fresh (post-step) forward pass
+    (reference: src/kharmonic_lofar.py:186-202)."""
+    return _updated(model(x, uv), x, duals, rho)
+
+
+@torch.no_grad()
+def metrics_and_dual_update(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
+                            w: LossWeights, num_groups: int, use_rica: bool = True,
+                            khm_order: int = 4, khm_backend: str = "auto"):
+    """One shared post-step forward producing BOTH the per-term metrics (at the
+    post-step parameters, pre-update duals) and the dual update: (metrics, duals).
+    The L-BFGS ADMM step uses it after each optimizer step."""
+    out = model(x, uv)
+    _, metrics = loss_from_outputs(out, model.khm.M, x, duals, w, num_groups,
+                                   use_rica=use_rica, khm_order=khm_order,
+                                   khm_backend=khm_backend)
+    return metrics, _updated(out, x, duals, w.rho)

@@ -1,10 +1,13 @@
-"""The Adam ADMM minibatch step (port of the unfused ``make_train_step`` of
-``lshm_tpu/train/step.py``; reference: src/kharmonic_lofar.py:115-202).
+"""The ADMM minibatch steps (port of ``lshm_tpu/train/step.py``: the unfused Adam
+``make_train_step`` and ``make_lbfgs_train_step``; reference:
+src/kharmonic_lofar.py:93,115-202).
 
-One call = one minibatch = ``admm_iters`` inner iterations of {Adam update on the full
-augmented-Lagrangian objective, then the Lagrange-multiplier update}.  PyTorch runs
-eagerly, so the ADMM loop is a Python loop; metrics come back as stacked
-[admm_iters] tensors per term, like the JAX step.
+One call = one minibatch = ``admm_iters`` inner iterations of {optimizer update on the
+full augmented-Lagrangian objective, then the Lagrange-multiplier update}.  PyTorch runs
+eagerly, so the ADMM loop is a Python loop whichever of ``train.admm_unroll`` and
+``train.admm_unroll_lbfgs`` the config holds (in JAX they choose how the loop is
+lowered, with the same math); metrics come back as stacked [admm_iters] tensors per
+term, like the JAX steps.
 """
 
 from __future__ import annotations
@@ -13,18 +16,36 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.func import functional_call
 
 from lshm_tpu_torch.config import Config
 from lshm_tpu_torch.models import CascadedAE
-from lshm_tpu_torch.train.objective import Duals, LossWeights, cascade_objective, dual_update
+from lshm_tpu_torch.optim import LBFGSState, lbfgs_init, make_lbfgs_step, value_and_grad
+from lshm_tpu_torch.train.objective import (
+    Duals,
+    LossWeights,
+    cascade_objective,
+    dual_update,
+    loss_from_outputs,
+    metrics_and_dual_update,
+)
 from lshm_tpu_torch.train.schedule import group_mask
 
 
 @dataclass
 class TrainState:
+    """The model and its optimizer: Adam (``make_train_step``), or an ``LBFGSState``
+    over the active group's parameters (``make_lbfgs_train_step``; JAX's
+    ``LBFGSTrainState``).  Both have ``state_dict``/``load_state_dict``, which the
+    Trainer's revert and checkpoint use for either kind."""
     model: CascadedAE
-    optimizer: torch.optim.Optimizer
+    opt: torch.optim.Optimizer | LBFGSState
     step: int = 0
+
+
+def _loss_kw(cfg: Config) -> dict:
+    return dict(use_rica=cfg.model.rica, khm_order=cfg.model.khm_order,
+                khm_backend=cfg.model.khm_backend)
 
 
 def make_optimizer(cfg: Config, model: torch.nn.Module, group: str = "all") -> torch.optim.Adam:
@@ -38,23 +59,27 @@ def make_optimizer(cfg: Config, model: torch.nn.Module, group: str = "all") -> t
     return torch.optim.Adam(params, lr=cfg.optim.adam_lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def init_train_state(cfg: Config, device: torch.device | str, group: str = "all") -> TrainState:
+def init_model(cfg: Config, device: torch.device | str) -> CascadedAE:
     """Model initialised from ``cfg.train.seed`` (drawn on the CPU, so the weights do
-    not depend on the device), moved to ``device``, with its optimizer."""
+    not depend on the device), moved to ``device``."""
     g = torch.Generator().manual_seed(cfg.train.seed)
-    model = CascadedAE(cfg.model, generator=g).to(device)
-    return TrainState(model=model, optimizer=make_optimizer(cfg, model, group))
+    return CascadedAE(cfg.model, generator=g).to(device)
+
+
+def init_train_state(cfg: Config, device: torch.device | str, group: str = "all") -> TrainState:
+    """``init_model`` with its Adam optimizer."""
+    model = init_model(cfg, device)
+    return TrainState(model=model, opt=make_optimizer(cfg, model, group))
 
 
 def make_train_step(cfg: Config, num_groups: int) -> Callable:
     """(state, x, uv, weights) -> (state, metrics); ``state`` is updated in place.
     ``num_groups`` = baselines per minibatch (the augmentation grouping)."""
     nadmm = cfg.train.admm_iters
-    kw = dict(use_rica=cfg.model.rica, khm_order=cfg.model.khm_order,
-              khm_backend=cfg.model.khm_backend)
+    kw = _loss_kw(cfg)
 
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor, w: LossWeights):
-        model, opt = state.model, state.optimizer
+        model, opt = state.model, state.opt
         duals = Duals.zeros_like(x)
         history = []
         for _ in range(nadmm):
@@ -64,6 +89,81 @@ def make_train_step(cfg: Config, num_groups: int) -> Callable:
             opt.step()
             duals = dual_update(model, x, uv, duals, w.rho)
             history.append({k: v.detach() for k, v in metrics.items()})
+        state.step += 1
+        stacked = {k: torch.stack([m[k] for m in history]) for k in history[0]} \
+            if history else {}
+        return state, stacked
+
+    return train_step
+
+
+# ------------------------------------------------------------------------- L-BFGS
+
+def active_params(model: torch.nn.Module, group: str) -> dict[str, torch.Tensor]:
+    """{name: detached parameter} of the parameters that ``group`` trains."""
+    named = dict(model.named_parameters())
+    mask = group_mask(named, group)
+    return {n: p.detach() for n, p in named.items() if mask[n]}
+
+
+def init_lbfgs_train_state(cfg: Config, device: torch.device | str,
+                           group: str = "all") -> TrainState:
+    """``init_model`` with a fresh L-BFGS state over the parameters of ``group``."""
+    model = init_model(cfg, device)
+    return TrainState(model=model, opt=lbfgs_init(active_params(model, group),
+                                                  cfg.optim.lbfgs))
+
+
+def lbfgs_objective(cfg: Config, num_groups: int) -> Callable:
+    """The L-BFGS closure: (params, model, frozen, x, uv, duals, w) -> loss, the model
+    evaluated on ``params`` (the active group's parameters) and ``frozen`` (the others,
+    detached)."""
+    kw = _loss_kw(cfg)
+
+    def value_fn(params, model, frozen, x, uv, duals, w):
+        full = {**frozen, **params}
+        out = functional_call(model, full, (x, uv))
+        return loss_from_outputs(out, full["khm.M"], x, duals, w, num_groups, **kw)[0]
+
+    return value_fn
+
+
+def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all") -> Callable:
+    """L-BFGS minibatch step, (state, x, uv, weights) -> (state, metrics), ``state``
+    updated in place: each of the ``admm_iters`` inner iterations runs one full
+    ``optimizer.step(closure)`` (up to ``max_iter`` L-BFGS iterations with line search)
+    followed by ``metrics_and_dual_update`` — the structure of the reference's L-BFGS
+    training mode (reference: src/kharmonic_lofar.py:93,131-202).
+
+    Alternating groups (the structural freeze of the JAX step): the closure evaluates
+    the model on the active group's parameters, which L-BFGS moves, and on detached
+    values of the frozen groups', which take no gradient, so no backward runs into
+    them (K4 does not run in ``ae1d`` or ``khm`` epochs).  The L-BFGS state spans the
+    active parameters only.  In JAX it spans every parameter and its entries for the
+    frozen groups stay exactly zero, so every dot product, norm and step is the same
+    math; the sums run in another order."""
+    nadmm = cfg.train.admm_iters
+    kw = _loss_kw(cfg)
+    value_fn = lbfgs_objective(cfg, num_groups)
+    lbfgs_step = make_lbfgs_step(value_and_grad(value_fn), value_fn, cfg.optim.lbfgs)
+
+    def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor,
+                   w: LossWeights):
+        model = state.model
+        named = dict(model.named_parameters())
+        params = active_params(model, group)
+        frozen = {n: p.detach() for n, p in named.items() if n not in params}
+        duals = Duals.zeros_like(x)
+        history = []
+        for _ in range(nadmm):
+            res = lbfgs_step(params, state.opt, model, frozen, x, uv, duals, w)
+            params, state.opt = res.x, res.state
+            with torch.no_grad():
+                for n, v in params.items():
+                    named[n].copy_(v)
+            metrics, duals = metrics_and_dual_update(model, x, uv, duals, w, num_groups,
+                                                     **kw)
+            history.append(metrics)
         state.step += 1
         stacked = {k: torch.stack([m[k] for m in history]) for k in history[0]} \
             if history else {}

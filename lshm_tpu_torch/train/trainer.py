@@ -1,11 +1,13 @@
-"""Top-level training orchestration (port of the Adam path of
-``lshm_tpu/train/trainer.py``; reference: src/kharmonic_lofar.py:115-222).
+"""Top-level training orchestration (port of ``lshm_tpu/train/trainer.py``;
+reference: src/kharmonic_lofar.py:115-222).
 
-Epochs x iterations x ADMM schedule, the alpha/beta/gamma ramp (Adam stages),
-alternating model groups (optimizer moments reset on a switch, as in JAX), a prefetching
-input pipeline, metric logging, the one-step-delayed non-finite revert, and a
-checkpoint at the end.  One device; ``Trainer(cfg)`` runs on the card and raises when
-there is none.
+Epochs x iterations x ADMM schedule, the published alpha/beta/gamma ramp with the
+Adam -> L-BFGS switch (``RampStage.optimizer``, else ``optim.optimizer``), alternating
+model groups, a prefetching input pipeline, metric logging, the one-step-delayed
+non-finite revert, and a checkpoint at the end.  A switch of (optimizer kind, group)
+carries the parameters over and resets the optimizer state, as in JAX; the L-BFGS
+state persists across the minibatches of one (kind, group).  One device;
+``Trainer(cfg)`` runs on the card and raises when there is none.
 """
 
 from __future__ import annotations
@@ -18,9 +20,17 @@ import torch
 from lshm_tpu_torch.config import Config, check_supported
 from lshm_tpu_torch.data import MinibatchSampler, PrefetchIterator, scan_files
 from lshm_tpu_torch.device import resolve_device, use_exact_float32
+from lshm_tpu_torch.optim import lbfgs_init
 from lshm_tpu_torch.train.objective import LossWeights
 from lshm_tpu_torch.train.schedule import active_group, ramp_stage_for_epoch
-from lshm_tpu_torch.train.step import TrainState, init_train_state, make_optimizer, make_train_step
+from lshm_tpu_torch.train.step import (
+    TrainState,
+    active_params,
+    init_model,
+    make_lbfgs_train_step,
+    make_optimizer,
+    make_train_step,
+)
 from lshm_tpu_torch.utils.checkpoint import save_checkpoint
 from lshm_tpu_torch.utils.metrics import MetricLogger
 
@@ -37,28 +47,35 @@ class Trainer:
             use_exact_float32()
         self.logger = logger or MetricLogger(echo=True)
         self.state: TrainState | None = None
-        self._group: str | None = None
+        self._opt_kind: tuple[str, str] | None = None    # (optimizer kind, group)
 
     @property
     def model(self):
         return None if self.state is None else self.state.model
 
-    def _ensure_state(self, group: str) -> None:
+    def _ensure_state(self, kind: str, group: str) -> None:
+        """Build the optimizer state of (kind, group) on a switch; the parameters (and
+        the step count) carry over."""
+        if self.state is not None and (kind, group) == self._opt_kind:
+            return
         if self.state is None:
-            self.state = init_train_state(self.cfg, self.device, group)
-        elif group != self._group:   # group switch: params carry over, moments reset
-            self.state.optimizer = make_optimizer(self.cfg, self.state.model, group)
-        self._group = group
+            model, step = init_model(self.cfg, self.device), 0
+        else:
+            model, step = self.state.model, self.state.step
+        opt = (make_optimizer(self.cfg, model, group) if kind == "adam" else
+               lbfgs_init(active_params(model, group), self.cfg.optim.lbfgs))
+        self.state = TrainState(model, opt, step)
+        self._opt_kind = (kind, group)
 
     def _snapshot(self):
         s = self.state
         params = {k: v.detach().clone() for k, v in s.model.state_dict().items()}
-        return params, copy.deepcopy(s.optimizer.state_dict()), s.step
+        return params, copy.deepcopy(s.opt.state_dict()), s.step
 
     def _restore(self, snap) -> None:
         params, opt, step = snap
         self.state.model.load_state_dict(params)
-        self.state.optimizer.load_state_dict(opt)
+        self.state.opt.load_state_dict(opt)
         self.state.step = step
 
     def run(self, sampler: MinibatchSampler | None = None) -> dict:
@@ -79,6 +96,7 @@ class Trainer:
             src = stage if stage is not None else cfg.loss
             w = LossWeights(alpha=src.alpha, beta=src.beta, gamma=src.gamma,
                             rho=cfg.loss.rho, rica_lambda=cfg.loss.rica_lambda)
+            kind = stage.optimizer if stage is not None else cfg.optim.optimizer
             group = active_group(cfg.optim.group_schedule, epoch)
             source = (PrefetchIterator(sampler, cfg.data.prefetch, self.device)
                       if cfg.data.prefetch > 0 else None)
@@ -103,8 +121,9 @@ class Trainer:
                     else:
                         mb = sampler.sample()
                         x, uv = place(mb.x), place(mb.uv)
-                    self._ensure_state(group)
-                    step = make_train_step(cfg, mb.num_baselines)
+                    self._ensure_state(kind, group)
+                    step = (make_train_step(cfg, mb.num_baselines) if kind == "adam" else
+                            make_lbfgs_train_step(cfg, mb.num_baselines, group))
                     if pending is not None:
                         settle(pending)
                     snap = self._snapshot() if cfg.train.skip_nonfinite else None
@@ -139,15 +158,16 @@ class Trainer:
 
     def save(self, ckpt_dir: str, step: int, epoch: int | None = None,
              iter_in_epoch: int = 0) -> None:
-        """Parameters, optimizer state and step in one file, the config beside it."""
+        """Parameters, optimizer state (Adam's, or the L-BFGS state) and step in one
+        file, with ``opt_kind`` = [kind, group]; the config beside it."""
         if self.state is None:
             print("warning: nothing to checkpoint (no training has run); skipping save")
             return
         s = self.state
         save_checkpoint(ckpt_dir, {
             "params": s.model.state_dict(),
-            "optimizer": s.optimizer.state_dict(),
+            "optimizer": s.opt.state_dict(),
             "step": s.step,
-            "opt_kind": ["adam", self._group],
+            "opt_kind": list(self._opt_kind),
         }, step, extras={"config": self.cfg.to_dict(), "epoch": epoch,
                          "iter": int(iter_in_epoch)})

@@ -1,6 +1,6 @@
-"""The port's fused conv head (kernels K3/K4, plain versions on the CPU) against the JAX
-Pallas kernel in interpret mode, at the prime batch of tests/test_models.py
-(B = 11, P = 32): forward and weight gradients to 2e-5 relative."""
+"""The port's fused conv head (kernels K3/K4/K5, plain versions on the CPU) against the
+JAX Pallas kernels in interpret mode, at the prime batch of tests/test_models.py
+(B = 11, P = 32): forward, weight gradients and input gradient to 2e-5 relative."""
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +68,8 @@ def test_enc_head_other_shapes_match_strided_convs(C, P):
 
 
 def test_input_gradient_on_cpu_matches_jax():
-    """K5 is not ported to CUDA; on the CPU the plain version supplies dx."""
+    """dx through EncHead (K5's plain version on the CPU) against jax.grad of the
+    strided convolutions."""
     x, w0, b0, w1, b1 = _data(2, 16, 4, seed=5)
     ct = np.random.default_rng(2).normal(size=(2, 4, 4, 12)).astype(np.float32)
     jargs = [jnp.asarray(a) for a in (x, w0, b0, w1, b1)]
@@ -77,6 +78,41 @@ def test_input_gradient_on_cpu_matches_jax():
     y = tk.enc_head(xt, _oihw(w0), torch.tensor(b0), _oihw(w1), torch.tensor(b1))
     (dx,) = torch.autograd.grad(torch.sum(y * torch.from_numpy(ct)), xt)
     assert _rel(dx.numpy(), np.asarray(want)) < 2e-5
+
+
+@pytest.mark.parametrize("C,B,P", [(4, 11, 32), (8, 3, 20)])
+def test_input_gradient_matches_jax_dx_kernel_interpret(C, B, P):
+    """head_input_grad (K5) against jax.grad w.r.t. x of the JAX enc_head in interpret
+    mode, which runs the TPU kernel _dx_kernel; also with 8 channels and a patch whose
+    stage-1 map is not a whole tile."""
+    x, w0, b0, w1, b1 = _data(B, P, C, seed=7 + C)
+    ct = np.random.default_rng(3).normal(size=(B, P // 4, P // 4, 12)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, w0, b0, w1, b1)]
+    want = jax.grad(lambda v: jnp.sum(jax_enc_head(v, *jargs[1:], interpret=True) * ct))(
+        jargs[0])
+    got = tk.head_input_grad(torch.tensor(x), _oihw(w0), torch.tensor(b0), _oihw(w1),
+                             torch.tensor(b1), torch.from_numpy(ct))
+    assert got.shape == x.shape
+    assert _rel(got.numpy(), np.asarray(want)) < 2e-5
+
+
+def test_backward_computes_only_what_is_asked():
+    """EncHead's backward: dx alone when only the input needs a gradient, the weights'
+    alone when only they do (the training path, where the input is data)."""
+    x, w0, b0, w1, b1 = _data(2, 16, 4, seed=9)
+    ct = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 4, 4, 12))
+                          .astype(np.float32))
+    ws = [_oihw(w0), torch.tensor(b0), _oihw(w1), torch.tensor(b1)]
+    xt = torch.tensor(x, requires_grad=True)
+    tk.enc_head(xt, *ws).mul(ct).sum().backward()
+    assert xt.grad is not None and all(w.grad is None for w in ws)
+    want = tk.head_grads_plain(torch.tensor(x), *ws, ct, input_grad=True)
+    assert torch.equal(xt.grad, want[0])
+    for w in ws:
+        w.requires_grad_()
+    tk.enc_head(torch.tensor(x), *ws).mul(ct).sum().backward()
+    for w, g in zip(ws, want[1:]):
+        assert torch.equal(w.grad, g)
 
 
 def test_padding_ring_is_zero_not_elu_b0():

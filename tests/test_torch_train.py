@@ -137,7 +137,7 @@ def test_trainer_switches_groups_and_follows_the_ramp(tmp_path):
                                for k in now if k.startswith(prefix))
     assert moved("khm.") and moved("ae2d.")
     assert not moved("aeT.") and not moved("aeF.")
-    assert [p for g in trainer.state.optimizer.param_groups for p in g["params"]] == \
+    assert [p for g in trainer.state.opt.param_groups for p in g["params"]] == \
         list(trainer.model.ae2d.parameters())
     first = trainer.logger.history[0]
     assert first["kdist"] > 0 and np.isfinite(first["loss"])
