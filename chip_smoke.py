@@ -10,29 +10,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 path's shapes (relative max error 1e-5 forward, 2e-5 gradients),
                 bit-identical repeats of the three backward kernels, and CUDA-event
                 timings (median of 20 after warm-up, tools/measure.py) of kernel, plain
-                version and library yardstick
+                version and library yardstick; then K3 and K4 in bfloat16 the same way
+                (output 4e-3, one bf16 ulp of the largest value, with the share of
+                elements that differ at all; K4's float32 sums before the cast 1e-4,
+                bit-identical repeats; yardsticks in bf16, channels-last)
   4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
                 synthetic extract held in memory, with every kernel's launch count
   5. agree      one minibatch (2 ADMM iterations) through the kernels and through the
                 plain path from the same state: per-term metrics within 1e-4; and the
                 cascade forward on the card against the CPU on two patches
-  6. head_input_grad  enc_head on a CUDA x that needs its gradient: K3, K4 and K5
+  6. trainer_bf16     the same run of preset full_khm_bf16 (bfloat16_full): K1, K2 and
+                the bf16 K3 and K4 launch 30, 30, 60 and 30 times; then the first ADMM
+                iteration of the first minibatch from the same initial parameters
+                through full_khm_bf16 and full_khm, per-term losses within JAX's
+                bf16 gate 0.05 |f32| + 5e-3 (tests/test_bf16.py:101-120)
+  7. head_input_grad  enc_head on a CUDA x that needs its gradient: K3, K4 and K5
                 launch, and dx matches autograd through the plain version
-  7. conv0_probe      the port's probe tool (its parity check, then K6, its plain
+  8. conv0_probe      the port's probe tool (its parity check, then K6, its plain
                 version and cuDNN timed) at batch 420, then K6's parity at 420 (1e-5):
                 K6's row of the kernels line
-  8. lbfgs      the full-width Trainer through the published recipe's Adam -> L-BFGS
-                switch (preset full_khm_lbfgs in float32, its prefetch on): 4 epochs x
-                1 minibatch x 2 ADMM iterations over the groups ae2d, ae1d, khm, ae2d,
-                and its checkpoint; per epoch, timed around the step alone, its kind,
-                group, ms and closure evaluations per ADMM iteration, host
+  9. lbfgs      the full-width Trainer through the published recipe's Adam -> L-BFGS
+                switch (preset full_khm_lbfgs as published, bfloat16, its prefetch on):
+                4 epochs x 1 minibatch x 2 ADMM iterations over the groups ae2d, ae1d,
+                khm, ae2d, and its checkpoint; per epoch, timed around the step alone,
+                its kind, group, ms and closure evaluations per ADMM iteration, host
                 synchronisations, peak memory and K1-K4 launches
-  9. agree_lbfgs      the L-BFGS closure (value, every gradient) through the kernels
-                (K1-K4 launched) against the plain path (none launched), within 1e-4 /
-                2e-4, and one L-BFGS ADMM iteration through each with both func_evals
-                printed
-Each path (4, 6, 7, 8) is driven with the launch counts set to 0 just before it and
+  10. agree_lbfgs     the L-BFGS closure in float32 (value, every gradient) through the
+                kernels (K1-K4 launched) against the plain path (none launched), within
+                1e-4 / 2e-4, and one L-BFGS ADMM iteration through each with both
+                func_evals printed
+Each path (4, 6, 7, 8, 9) is driven with the launch counts set to 0 just before it and
 read just after.  Then the kernels table as one JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}} as the last line.  Without a CUDA device it
 exits 2 before printing any result.  It imports nothing of JAX or of the JAX package.
@@ -51,6 +59,7 @@ import time
 import torch
 
 ADAM_PATH = ("khm_fwd", "khm_bwd", "head_fwd", "head_bwd")    # K1-K4
+BF16_PATH = ("khm_fwd", "khm_bwd", "head_fwd_bf16", "head_bwd_bf16")   # K3, K4 in bf16
 PATCHES = 420                  # 12 baselines x 35 patches: one full-width minibatch
 
 
@@ -224,17 +233,83 @@ def head_phase(dev) -> list[dict]:
              plain_ms=time_ms(lambda: H.head_grads_plain(x, w0, b0, w1, b1, g1,
                                                          input_grad=True)),
              bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx)),
+    ] + head_bf16_rows(x, w0, b0, w1, b1, g1)
+
+
+def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
+    """K3 and K4 on the same inputs rounded to bf16, against their plain versions."""
+    import torch.nn.functional as F
+
+    from lshm_tpu_torch.kernels import conv_head as H
+    from lshm_tpu_torch.tools.measure import PEAK_BF16_TC_FLOP_S, bound, time_ms
+
+    xb, w0b, b0b, w1b, b1b, g1b = (t.to(torch.bfloat16) for t in (x, w0, b0, w1, b1, g1))
+    args = (xb, w0b, b0b, w1b, b1b)
+    y = H.head_forward(*args)
+    y_p = H.enc_head_plain(*args)
+    gr = H.head_weight_grads(*args, g1b)       # the float32 sums, before EncHead's cast
+    gr_p = H.head_grads_plain(*args, g1b)
+    gr2 = H.head_weight_grads(*args, g1b)
+    torch.cuda.synchronize()
+    row = {"phase": "parity", "kernel": "conv_head_bf16", "x": list(xb.shape),
+           "fwd_rel_err": rel_err(y.float(), y_p.float()),
+           "fwd_differing_share": float((y != y_p).float().mean()),
+           "bwd_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
+           "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
+           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+    emit(row)
+    # K3 bf16 rounds where its plain version rounds, and on the H100 no element of the
+    # two differs: a kernel that drops or moves the rounding of e0 fails here
+    if (row["fwd_rel_err"] > 4e-3 or row["fwd_differing_share"] != 0.0
+            or row["bwd_rel_err"] > 1e-4 or not row["bwd_bit_identical"]):
+        raise AssertionError(f"bf16 conv-head kernels disagree with their plain versions: "
+                             f"{row}")
+
+    # yardsticks: cuDNN in bf16 on the channels-last view of the NHWC input
+    x_cl = xb.permute(0, 3, 1, 2)
+
+    def cudnn_fwd():
+        return F.elu(F.conv2d(F.elu(F.conv2d(x_cl, w0b, b0b, 2, 1)), w1b, b1b, 2, 1))
+
+    ws = [t.clone().requires_grad_() for t in (w0b, b0b, w1b, b1b)]
+    y_graph = F.elu(F.conv2d(F.elu(F.conv2d(x_cl, *ws[:2], 2, 1)), *ws[2:], 2, 1))
+    g1_cl = g1b.permute(0, 3, 1, 2)
+
+    def cudnn_bwd():      # backward from saved activations, no recompute
+        return torch.autograd.grad(y_graph, ws, g1_cl, retain_graph=True)
+
+    B, P, _, C = xb.shape
+    F0, F1 = w0.shape[0], w1.shape[0]
+    in_b, out_b = 2.0 * B * P * P * C, 2.0 * B * (P // 4) ** 2 * F1
+    w_b = 2.0 * (w0.numel() + w1.numel() + F0 + F1)
+    mac0 = B * (P // 2) ** 2 * F0 * 16 * C
+    mac1 = B * (P // 4) ** 2 * F1 * 16 * F0
+    b3 = bound(in_b + out_b + w_b, 2.0 * (mac0 + mac1), PEAK_BF16_TC_FLOP_S)
+    b4 = bound(in_b + out_b + 2 * w_b, 2.0 * (2 * mac0 + 3 * mac1), PEAK_BF16_TC_FLOP_S)
+    src, tpu = "lshm_tpu_torch/csrc/conv_head.cu", "lshm_tpu/kernels/conv2d_outer.py"
+    return [
+        dict(name="K3 head_fwd (bf16)", route="cuda", source=src, replaces=f"{tpu}:233",
+             counter="head_fwd_bf16", max_abs_err=abs_err(y.float(), y_p.float()),
+             ms=time_ms(lambda: H.head_forward(*args)),
+             plain_ms=time_ms(lambda: H.enc_head_plain(*args)),
+             bound_ms=b3[0], bound_by=b3[1], library_ms=time_ms(cudnn_fwd)),
+        dict(name="K4 head_bwd (bf16)", route="cuda", source=src, replaces=f"{tpu}:334",
+             counter="head_bwd_bf16",
+             max_abs_err=max(abs_err(a, b) for a, b in zip(gr, gr_p)),
+             ms=time_ms(lambda: H.head_weight_grads(*args, g1b)),
+             plain_ms=time_ms(lambda: H.head_grads_plain(*args, g1b)),
+             bound_ms=b4[0], bound_by=b4[1], library_ms=time_ms(cudnn_bwd)),
     ]
 
 
 # --------------------------------------------------------------------- phases 4, 5
 
-def flagship_config(tmpdir: str):
+def flagship_config(tmpdir: str, name: str = "full_khm"):
     import dataclasses
 
     from lshm_tpu_torch.config import preset
 
-    cfg = preset("full_khm")
+    cfg = preset(name)
     return dataclasses.replace(
         cfg,
         model=dataclasses.replace(cfg.model, khm_backend="pallas", pallas_head=True),
@@ -243,7 +318,8 @@ def flagship_config(tmpdir: str):
     )
 
 
-def trainer_phase(tree, tmpdir: str) -> dict:
+def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
+                  phase: str = "trainer") -> dict:
     import math
 
     from lshm_tpu_torch.data import MinibatchSampler
@@ -251,7 +327,7 @@ def trainer_phase(tree, tmpdir: str) -> dict:
     from lshm_tpu_torch.train import Trainer
     from lshm_tpu_torch.utils import MetricLogger
 
-    cfg = flagship_config(tmpdir)
+    cfg = flagship_config(tmpdir, name)
     sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
     logger = MetricLogger(echo=False)
     trainer = Trainer(cfg, logger=logger)           # device=None: the card
@@ -268,7 +344,8 @@ def trainer_phase(tree, tmpdir: str) -> dict:
     steady_s = (hist[-1]["t"] - hist[0]["t"]) / (len(hist) - 1)
     nadmm = cfg.train.admm_iters
     losses = {k: v for k, v in summary.items() if k != "t"}
-    row = {"phase": "trainer", "preset": "full_khm", "patches": patches,
+    row = {"phase": phase, "preset": name, "compute_dtype": cfg.model.compute_dtype,
+           "patches": patches,
            "admm_iters": nadmm, "minibatches": len(hist), "losses": losses,
            "ms_per_admm_iter": steady_s / nadmm * 1e3,
            "patches_per_s": patches * nadmm / steady_s,
@@ -280,9 +357,47 @@ def trainer_phase(tree, tmpdir: str) -> dict:
         raise AssertionError(f"expected 3 minibatches of 420 patches: {row}")
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite losses: {losses}")
-    missing = [k for k in ADAM_PATH if counts[k] == 0]
+    missing = [k for k in path if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    return counts
+
+
+def trainer_bf16_phase(tree, tmpdir: str) -> dict:
+    """The Adam trainer run of preset full_khm_bf16; then the first ADMM iteration of
+    the trainer's first minibatch from the same initial parameters in bfloat16_full and
+    in float32 (both through the kernels), per-term losses within JAX's bf16 gate."""
+    import dataclasses
+
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.train import LossWeights, init_train_state, make_train_step
+
+    counts = trainer_phase(tree, tmpdir, "full_khm_bf16", BF16_PATH, "trainer_bf16")
+    expected = {"khm_fwd": 30, "khm_bwd": 30, "head_fwd_bf16": 60, "head_bwd_bf16": 30,
+                "head_fwd": 0, "head_bwd": 0}
+    if any(counts[k] != v for k, v in expected.items()):
+        raise AssertionError(f"bf16 trainer launches {counts}, expected {expected}")
+
+    dev = torch.device("cuda")
+    first = {}
+    for name in ("full_khm", "full_khm_bf16"):
+        cfg = flagship_config(tmpdir, name)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, admm_iters=1))
+        sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+        sampler.reseed(0)                          # as Trainer.run's first epoch
+        mb = sampler.sample()
+        x, uv = torch.from_numpy(mb.x).to(dev), torch.from_numpy(mb.uv).to(dev)
+        w = LossWeights(alpha=cfg.loss.alpha, beta=cfg.loss.beta, gamma=cfg.loss.gamma,
+                        rho=cfg.loss.rho, rica_lambda=cfg.loss.rica_lambda)
+        _, m = make_train_step(cfg, mb.num_baselines)(init_train_state(cfg, dev), x, uv, w)
+        first[name] = {k: float(v[0]) for k, v in m.items()}
+    f32, bf16 = first["full_khm"], first["full_khm_bf16"]
+    gap = {k: abs(f32[k] - bf16[k]) / (0.05 * abs(f32[k]) + 5e-3) for k in f32}
+    emit({"phase": "trainer_bf16_first_iteration", "float32": f32, "bfloat16_full": bf16,
+          "gap_over_gate": gap, "rel_gap": {k: abs(f32[k] - bf16[k]) / abs(f32[k])
+                                            for k in f32}})
+    if max(gap.values()) > 1.0:
+        raise AssertionError(f"bf16 first-iteration losses outside JAX's gate: {gap}")
     return counts
 
 
@@ -381,10 +496,10 @@ def conv0_probe_phase(dev) -> tuple[dict, dict]:
 
 # --------------------------------------------------------------------- phases 8, 9
 
-def lbfgs_config(checkpoint_dir: str = ""):
-    """preset full_khm_lbfgs (float32 activations: the port has no bfloat16 yet) with
-    the published recipe's Adam -> L-BFGS switch, cut to 4 epochs x 1 minibatch x 2
-    ADMM iterations."""
+def lbfgs_config(checkpoint_dir: str = "", compute_dtype: str | None = None):
+    """preset full_khm_lbfgs (as published, bfloat16 activations, unless
+    ``compute_dtype`` is given) with the published recipe's Adam -> L-BFGS switch, cut
+    to 4 epochs x 1 minibatch x 2 ADMM iterations."""
     import dataclasses
 
     from lshm_tpu_torch.config import RampStage, preset
@@ -392,8 +507,8 @@ def lbfgs_config(checkpoint_dir: str = ""):
     cfg = preset("full_khm_lbfgs")
     return dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, compute_dtype="float32",
-                                  khm_backend="pallas", pallas_head=True),
+        model=dataclasses.replace(cfg.model, khm_backend="pallas", pallas_head=True,
+                                  compute_dtype=compute_dtype or cfg.model.compute_dtype),
         train=dataclasses.replace(
             cfg.train, num_epochs=4, iters_per_epoch=1, admm_iters=2,
             checkpoint_dir=checkpoint_dir,
@@ -465,6 +580,7 @@ def lbfgs_phase(dev, tree, tmpdir: str) -> dict:
     from lshm_tpu_torch.utils import MetricLogger, restore_checkpoint
 
     cfg = lbfgs_config(tmpdir)
+    path = BF16_PATH                # the preset as published runs K3 and K4 in bf16
     logger = MetricLogger(echo=False)
     trainer = Trainer(cfg, device=dev, logger=logger)
     sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
@@ -473,7 +589,7 @@ def lbfgs_phase(dev, tree, tmpdir: str) -> dict:
     with _StepClock() as clock:
         trainer.run(sampler)
     wall = time.perf_counter() - t0
-    total = {k: launch_counts()[k] for k in ADAM_PATH}
+    total = {k: launch_counts()[k] for k in path}
     nadmm = cfg.train.admm_iters
     epochs = []
     if len(clock.steps) != cfg.train.num_epochs:
@@ -482,11 +598,12 @@ def lbfgs_phase(dev, tree, tmpdir: str) -> dict:
         a, b = st["before"], st["after"]
         kind = ramp_stage_for_epoch(cfg.train.ramp, e).optimizer
         group = active_group(cfg.optim.group_schedule, e)
-        launches = {k: b["counts"][k] - a["counts"][k] for k in ADAM_PATH}
+        launches = {k: b["counts"][k] - a["counts"][k] for k in path}
         evals, syncs = b["func_evals"] - a["func_evals"], b["syncs"] - a["syncs"]
         ms = st["ms"] / nadmm
         rec = logger.history[e]
-        row = {"phase": "lbfgs", "epoch": e, "kind": kind, "group": group,
+        row = {"phase": "lbfgs", "compute_dtype": cfg.model.compute_dtype, "epoch": e,
+               "kind": kind, "group": group,
                "patches": rec["patches"], "ms_per_admm_iter": ms,
                "loss": rec["loss"], "peak_mem_gb": st["peak"] / 1e9, "launches": launches}
         if kind == "lbfgs":
@@ -508,12 +625,12 @@ def lbfgs_phase(dev, tree, tmpdir: str) -> dict:
             raise AssertionError(f"group freeze broken in epoch {e}: {row}")
         if kind == "lbfgs" and evals <= 0:
             raise AssertionError(f"L-BFGS made no closure evaluation in epoch {e}")
-        if kind == "lbfgs" and group == "ae2d" and launches["head_bwd"] == 0:
+        if kind == "lbfgs" and group == "ae2d" and launches[path[3]] == 0:
             raise AssertionError(f"K4 did not run in the L-BFGS ae2d epoch: {row}")
     kinds = [r["kind"] for r in epochs]
     if kinds != ["adam", "lbfgs", "lbfgs", "lbfgs"]:
         raise AssertionError(f"expected Adam then L-BFGS epochs, got {kinds}")
-    missing = [k for k in ADAM_PATH if total[k] == 0]
+    missing = [k for k in path if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the L-BFGS path: {missing}")
     saved, _ = restore_checkpoint(tmpdir)
@@ -542,7 +659,7 @@ def agree_lbfgs_phase(dev, tree) -> None:
         metrics_and_dual_update,
     )
 
-    cfg_k = lbfgs_config()
+    cfg_k = lbfgs_config(compute_dtype="float32")
     cfg_k = dataclasses.replace(cfg_k, train=dataclasses.replace(cfg_k.train, admm_iters=1))
     cfg_p = dataclasses.replace(cfg_k, model=dataclasses.replace(
         cfg_k.model, khm_backend="xla", pallas_head=False))
@@ -626,6 +743,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         adam = trainer_phase(tree, tmpdir)
         agree_phase(tree, tmpdir)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        adam_bf16 = trainer_bf16_phase(tree, tmpdir)
     head = head_input_grad_phase(dev)
     probe, k6_row = conv0_probe_phase(dev)
     kernels.append(k6_row)
@@ -633,20 +752,22 @@ def main() -> int:
         lbfgs = lbfgs_phase(dev, tree, tmpdir)
     agree_lbfgs_phase(dev, tree)
 
-    # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; their
-    # counts on the L-BFGS trainer beside), K5 EncHead's backward w.r.t. its input,
-    # K6 the probe tool
-    paths = {"head_dx": ("head_input_grad", head), "conv0": ("conv0_probe", probe)}
+    # launches on each kernel's own path: K1-K4 the Adam trainer (the main path), the
+    # bf16 K3 and K4 the bf16 Adam trainer (their counts on the bf16 L-BFGS recipe
+    # beside), K5 EncHead's backward w.r.t. its input, K6 the probe tool
+    paths = {"head_dx": ("head_input_grad", head), "conv0": ("conv0_probe", probe),
+             "head_fwd_bf16": ("trainer_bf16", adam_bf16),
+             "head_bwd_bf16": ("trainer_bf16", adam_bf16)}
     for k in kernels:
         counter = k.pop("counter")
         path, counts = paths.get(counter, ("trainer", adam))
         k["launches"] = counts[counter]
         k["path"] = path
-        k["on_main_path"] = path == "trainer"
+        k["on_main_path"] = path in ("trainer", "trainer_bf16")
         if counter in lbfgs:
             k["launches_lbfgs"] = lbfgs[counter]
         k["status"] = "ported, held against its plain version"
-    emit({"kernels": kernels, "still_to_port": []})
+    emit({"kernels": kernels, "still_to_port": ["K5 head_dx (bf16)", "K6 conv0 (bf16)"]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

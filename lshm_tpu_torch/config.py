@@ -289,6 +289,9 @@ class Config:
         return dataclasses.asdict(self)
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_full")
+
+
 def _raise_unsupported(root: Any, prefix: str, unsupported: list) -> None:
     for name, bad in unsupported:
         if bad:
@@ -304,10 +307,11 @@ def check_model_supported(m: ModelConfig) -> None:
         ("fuse_1d", m.fuse_1d),
         ("fast_conv1d", m.fast_conv1d),
         ("packed_conv2d", m.packed_conv2d > 0),
-        ("compute_dtype", m.compute_dtype != "float32"),
     ])
     if m.khm_backend not in ("xla", "pallas", "auto"):
         raise ValueError(f"model.khm_backend={m.khm_backend!r}")
+    if m.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"model.compute_dtype={m.compute_dtype!r}: one of {COMPUTE_DTYPES}")
 
 
 def check_supported(cfg: Config) -> None:

@@ -5,9 +5,32 @@
 // cudaGetLastError() as an int; the Python wrappers (ctypes) raise when it is not 0.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace lshm {
+
+// Storage types: float, or __nv_bfloat16 (the bfloat16 compute modes).  Kernels compute
+// in float32 whatever the storage; conversions go through the intrinsics only.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// v rounded to T's precision, kept as float (identity for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -58,31 +81,45 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // Shared by the fused head (conv_head.cu: K3, K4, K5) and the standalone stage
 // (conv0.cu: K6), so every kernel sums the taps in the same (ky, kx, c) order.
 
-// w [F, C, 4, 4] (OIHW) -> ws [tap][c][f], tap = ky * 4 + kx; b [F] -> bs.
-template <int C, int F>
-__device__ void load_conv_s2_weights(const float* __restrict__ w,
-                                     const float* __restrict__ b, float* ws, float* bs) {
+// w [F, C, 4, 4] (OIHW) -> ws [tap][c][f], tap = ky * 4 + kx; b [F] -> bs (float).
+template <int C, int F, typename T>
+__device__ void load_conv_s2_weights(const T* __restrict__ w, const T* __restrict__ b,
+                                     float* ws, float* bs) {
   for (int i = threadIdx.x; i < 16 * C * F; i += blockDim.x) {   // i = OIHW index
     const int tap = i % 16, c = (i / 16) % C, f = i / (16 * C);
-    ws[(tap * C + c) * F + f] = w[i];
+    ws[(tap * C + c) * F + f] = to_f32(w[i]);
   }
-  for (int i = threadIdx.x; i < F; i += blockDim.x) bs[i] = b[i];
+  for (int i = threadIdx.x; i < F; i += blockDim.x) bs[i] = to_f32(b[i]);
 }
 
 // Input window [XW, XW, C] of sample n with rows [iy0, iy0 + XW) and columns
-// [ix0, ix0 + XW) of the image x [B, P, P, C] (NHWC); zero outside the image.
-template <int C, int XW>
-__device__ void load_window(const float* __restrict__ x, int P, int n, int iy0, int ix0,
+// [ix0, ix0 + XW) of the image x [B, P, P, C] (NHWC), widened to float in shared
+// memory; zero outside the image.  A pixel is one load: 16 or 32 bytes of float,
+// 8 or 16 bytes of bfloat16 (C = 4 or 8).
+template <int C, int XW, typename T>
+__device__ void load_window(const T* __restrict__ x, int P, int n, int iy0, int ix0,
                             float* xw) {
   static_assert(C % 4 == 0, "whole float4 pixels");
   for (int i = threadIdx.x; i < XW * XW; i += blockDim.x) {
     const int iy = iy0 + i / XW, ix = ix0 + i % XW;
     float4* dst = reinterpret_cast<float4*>(xw + i * C);
     if (iy >= 0 && iy < P && ix >= 0 && ix < P) {
-      const float4* src =
-          reinterpret_cast<const float4*>(x + (((size_t)n * P + iy) * P + ix) * C);
+      const T* px = x + (((size_t)n * P + iy) * P + ix) * C;
+      if constexpr (std::is_same<T, float>::value) {
+        const float4* src = reinterpret_cast<const float4*>(px);
 #pragma unroll
-      for (int q = 0; q < C / 4; ++q) dst[q] = src[q];
+        for (int q = 0; q < C / 4; ++q) dst[q] = src[q];
+      } else {
+        using Vec = typename std::conditional<C == 4, uint2, uint4>::type;
+        const Vec v = *reinterpret_cast<const Vec*>(px);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+        for (int q = 0; q < C / 4; ++q) {
+          const float2 lo = __bfloat1622float2(h[2 * q]);
+          const float2 hi = __bfloat1622float2(h[2 * q + 1]);
+          dst[q] = make_float4(lo.x, lo.y, hi.x, hi.y);
+        }
+      }
     } else {
 #pragma unroll
       for (int q = 0; q < C / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);

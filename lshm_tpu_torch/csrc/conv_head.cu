@@ -5,9 +5,19 @@
 // Replaces lshm_tpu/kernels/conv2d_outer.py::_fwd_kernel, ::_bwd_kernel and
 // ::_dx_kernel.
 //
-// Layouts: x NHWC [B, P, P, C] (the data layout, read 16 B a pixel), weights in
+// Layouts: x NHWC [B, P, P, C] (the data layout, one load a pixel), weights in
 // PyTorch's OIHW (w0 [F0, C, 4, 4], w1 [F1, F0, 4, 4]), output NHWC [B, P/4, P/4, F1].
 // C is 4 or 8 (template), F0 = 8 and F1 = 12 (the ladder's first two widths).
+//
+// Storage type T (template) of x, the weights, the biases, g1 and the output: float,
+// or __nv_bfloat16 for the bfloat16 compute modes (K3 and K4; K5 is float only).
+// Everything inside is float32: the window and the weights are widened in shared
+// memory, so bf16 products are exact and every sum is a float32 sum in the same
+// (ky, kx, c) order as the float kernel.  In bf16, as in the TPU kernel, the stage-0
+// activation e0 is rounded to bf16 (the TPU kernel stores it in x's dtype), stage 1
+// sums over the rounded e0, and the output is rounded to bf16; K4 takes elu' of the
+// unrounded float a0, sums dW1 over the rounded e0 and dW0 over x's bf16 values, and
+// returns float32 sums (the wrapper casts them to the weights' dtype).
 //
 // Tiling: one tile = one sample's 8 x 8 block of stage-1 outputs.  It needs an 18 x 18
 // block of stage-0 outputs (the tile plus a 1-pixel halo at stride 2), which needs a
@@ -41,12 +51,15 @@
 //      gathers dpre0 = elu'(a0) * conv1^T(dpre1) there (zero on the padding ring) and
 //      gathers dx = conv0^T(dpre0) for its 32 x 32 x C inputs.
 //
-// Bound on the H100 at the main path's shapes (B=420, P=128, C=4): the forward reads
-// 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP (46 us at
-// 67 TFLOP/s FP32 without tensor cores), so it is bound by operations; the weight
-// backward reads 130.7 MB and does 7.5 GFLOP (112 us), also bound by operations; the
-// input backward moves 240.8 MB (72 us) and does 6.17 GFLOP (92 us), bound by
-// operations.
+// Bound on the H100 at the main path's shapes (B=420, P=128, C=4), float32: the
+// forward reads 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP
+// (46 us at 67 TFLOP/s FP32 without tensor cores), so it is bound by operations; the
+// weight backward reads 130.7 MB and does 7.5 GFLOP (112 us), also bound by operations;
+// the input backward moves 240.8 MB (72 us) and does 6.17 GFLOP (92 us), bound by
+// operations.  bfloat16: the forward and the weight backward each move 65.4 MB (x
+// 55.05 MB plus the output or g1, 10.32 MB: 19.5 us), and their 3.08 and 7.5 GFLOP
+// take 3.1 and 7.6 us on the bf16 tensor cores (989 TFLOP/s; bf16 products are exact
+// in a float32 sum), so both are bound by bytes.  These kernels use the CUDA cores.
 
 #include "common.cuh"
 
@@ -96,27 +109,28 @@ __device__ __forceinline__ Tile decode_tile(int t, int tps) {
   return r;
 }
 
-template <int C>
-__device__ void load_weights(const float* __restrict__ w0, const float* __restrict__ b0,
-                             const float* __restrict__ w1, const float* __restrict__ b1,
+template <int C, typename T>
+__device__ void load_weights(const T* __restrict__ w0, const T* __restrict__ b0,
+                             const T* __restrict__ w1, const T* __restrict__ b1,
                              float* w0s, float* b0s, float* w1s, float* b1s) {
   lshm::load_conv_s2_weights<C, kF0>(w0, b0, w0s, b0s);
   for (int i = threadIdx.x; i < 16 * kF0 * kF1; i += blockDim.x) {
     const int tap = i % 16, f0 = (i / 16) % kF0, f1 = i / (16 * kF0);
-    w1s[(tap * kF0 + f0) * kF1 + f1] = w1[i];
+    w1s[(tap * kF0 + f0) * kF1 + f1] = lshm::to_f32(w1[i]);
   }
-  if (threadIdx.x < kF1) b1s[threadIdx.x] = b1[threadIdx.x];
+  if (threadIdx.x < kF1) b1s[threadIdx.x] = lshm::to_f32(b1[threadIdx.x]);
 }
 
 // Input window rows/cols [32 ty - 3, 32 ty + 35) of sample n; zero outside the image.
-template <int C>
-__device__ void load_window(const float* __restrict__ x, int P, Tile t, float* xw) {
+template <int C, typename T>
+__device__ void load_window(const T* __restrict__ x, int P, Tile t, float* xw) {
   lshm::load_window<C, kXW>(x, P, t.n, 32 * t.ty - 3, 32 * t.tx - 3, xw);
 }
 
-// Stage 0 on the 18 x 18 tile: e0 = elu(a0) inside the image, 0 on the padding ring;
-// if d0 is given it receives elu'(a0) inside and 0 outside.
-template <int C>
+// Stage 0 on the 18 x 18 tile: e0 = elu(a0) rounded to T inside the image, 0 on the
+// padding ring; if d0 is given it receives elu'(a0) of the unrounded a0 inside and 0
+// outside.
+template <int C, typename T>
 __device__ void stage0(const float* xw, const float* w0s, const float* b0s, int H0, Tile t,
                        float* e0, float* d0) {
   for (int pos = threadIdx.x; pos < kT0 * kT0; pos += blockDim.x) {
@@ -136,7 +150,7 @@ __device__ void stage0(const float* xw, const float* w0s, const float* b0s, int 
 #pragma unroll
     for (int f = 0; f < kF0; ++f) {
       const float a = acc[f] + b0s[f];
-      e[f] = lshm::elu(a);
+      e[f] = lshm::round_to<T>(lshm::elu(a));
       if (d0) d0[pos * kF0 + f] = lshm::elu_grad(a);
     }
   }
@@ -176,14 +190,13 @@ __device__ __forceinline__ size_t out_index(Tile t, int H1) {
   return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + grp * kPerGroup;
 }
 
-// kDpre1 = false: out = elu(a1) (K3).  kDpre1 = true: out = g1 * elu'(a1), the first
-// pass of the input backward (K5).
-template <int C, bool kDpre1>
+// kDpre1 = false: out = elu(a1) rounded to T (K3).  kDpre1 = true: out = g1 * elu'(a1),
+// the first pass of the input backward (K5, T = float only).
+template <typename T, int C, bool kDpre1>
 __global__ void __launch_bounds__(kThreads)
-head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                const float* __restrict__ b0, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ g1, int P, int tps,
-                float* __restrict__ out) {
+head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
+                const T* __restrict__ w1, const T* __restrict__ b1,
+                const T* __restrict__ g1, int P, int tps, T* __restrict__ out) {
   using L = Layout<C>;
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
@@ -196,23 +209,24 @@ head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   load_weights<C>(w0, b0, w1, b1, w0s, b0s, w1s, b1s);
   load_window<C>(x, P, t, xw);
   __syncthreads();
-  stage0<C>(xw, w0s, b0s, P / 2, t, e0, nullptr);
+  stage0<C, T>(xw, w0s, b0s, P / 2, t, e0, nullptr);
   __syncthreads();
   float a1[kPerGroup];
   if (stage1(e0, w1s, b1s, P / 4, t, a1)) {
     const size_t o = out_index(t, P / 4);
 #pragma unroll
     for (int j = 0; j < kPerGroup; ++j)
-      out[o + j] = kDpre1 ? g1[o + j] * lshm::elu_grad(a1[j]) : lshm::elu(a1[j]);
+      out[o + j] = lshm::from_f32<T>(kDpre1 ? lshm::to_f32(g1[o + j]) * lshm::elu_grad(a1[j])
+                                            : lshm::elu(a1[j]));
   }
 }
 
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
-head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                const float* __restrict__ b0, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ g1, int P, int tps,
-                int ntiles, float* __restrict__ partial) {
+head_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
+                const T* __restrict__ w1, const T* __restrict__ b1,
+                const T* __restrict__ g1, int P, int tps, int ntiles,
+                float* __restrict__ partial) {
   using L = Layout<C>;
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
@@ -234,7 +248,7 @@ head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
     const Tile t = decode_tile(tile, tps);
     load_window<C>(x, P, t, xw);
     __syncthreads();
-    stage0<C>(xw, w0s, b0s, H0, t, e0, d0);
+    stage0<C, T>(xw, w0s, b0s, H0, t, e0, d0);
     __syncthreads();
 
     // dpre1 = g1 * elu'(a1); 0 outside the image
@@ -243,9 +257,9 @@ head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
       const int p = tid % (kT1 * kT1), grp = tid / (kT1 * kT1);
       float* dp = dp1 + p * kF1 + grp * kPerGroup;
       if (stage1(e0, w1s, b1s, H1, t, a1)) {
-        const float* g = g1 + out_index(t, H1);
+        const T* g = g1 + out_index(t, H1);
 #pragma unroll
-        for (int j = 0; j < kPerGroup; ++j) dp[j] = g[j] * lshm::elu_grad(a1[j]);
+        for (int j = 0; j < kPerGroup; ++j) dp[j] = lshm::to_f32(g[j]) * lshm::elu_grad(a1[j]);
       } else {
 #pragma unroll
         for (int j = 0; j < kPerGroup; ++j) dp[j] = 0.0f;
@@ -343,7 +357,7 @@ head_dx_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                  : 0.0f;
   }
   __syncthreads();
-  stage0<C>(xw, w0s, b0s, P / 2, t, e0, d0);
+  stage0<C, float>(xw, w0s, b0s, P / 2, t, e0, d0);
   __syncthreads();
 
   // dpre0[py, px, f0] = elu'(a0) * sum over the taps that reach it (ky = py mod 2)
@@ -395,29 +409,29 @@ head_dx_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 
 int tiles_per_side(int P) { return (P / 4 + kT1 - 1) / kT1; }
 
-template <int C, bool kDpre1>
-int fwd(const float* x, const float* w0, const float* b0, const float* w1, const float* b1,
-        const float* g1, int B, int P, float* out, cudaStream_t stream) {
+template <typename T, int C, bool kDpre1>
+int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1, int B,
+        int P, T* out, cudaStream_t stream) {
   using L = Layout<C>;
-  cudaError_t err = lshm::allow_smem(head_fwd_kernel<C, kDpre1>, L::fwd_bytes);
+  cudaError_t err = lshm::allow_smem(head_fwd_kernel<T, C, kDpre1>, L::fwd_bytes);
   if (err != cudaSuccess) return (int)err;
   const int tps = tiles_per_side(P);
-  head_fwd_kernel<C, kDpre1><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(
+  head_fwd_kernel<T, C, kDpre1><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(
       x, w0, b0, w1, b1, g1, P, tps, out);
   return (int)cudaGetLastError();
 }
 
-template <int C>
-int bwd(const float* x, const float* w0, const float* b0, const float* w1, const float* b1,
-        const float* g1, int B, int P, float* partial, float* grads, cudaStream_t stream) {
+template <typename T, int C>
+int bwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1, int B,
+        int P, float* partial, float* grads, cudaStream_t stream) {
   using L = Layout<C>;
-  cudaError_t err = lshm::allow_smem(head_bwd_kernel<C>, L::bwd_bytes);
+  cudaError_t err = lshm::allow_smem(head_bwd_kernel<T, C>, L::bwd_bytes);
   if (err != cudaSuccess) return (int)err;
   const int tps = tiles_per_side(P);
   const int ntiles = B * tps * tps;
   const int nblk = ntiles < kBwdBlocks ? ntiles : kBwdBlocks;
-  head_bwd_kernel<C><<<nblk, kThreads, L::bwd_bytes, stream>>>(x, w0, b0, w1, b1, g1, P,
-                                                              tps, ntiles, partial);
+  head_bwd_kernel<T, C><<<nblk, kThreads, L::bwd_bytes, stream>>>(x, w0, b0, w1, b1, g1, P,
+                                                                 tps, ntiles, partial);
   lshm::launch_reduce_partials(partial, nblk, L::nacc, 1.0f, grads, stream);
   return (int)cudaGetLastError();
 }
@@ -427,7 +441,7 @@ int dx_pass(const float* x, const float* w0, const float* b0, const float* w1,
             const float* b1, const float* g1, int B, int P, float* dpre1, float* dx,
             cudaStream_t stream) {
   using L = Layout<C>;
-  const int first = fwd<C, true>(x, w0, b0, w1, b1, g1, B, P, dpre1, stream);
+  const int first = fwd<float, C, true>(x, w0, b0, w1, b1, g1, B, P, dpre1, stream);
   if (first != 0) return first;
   cudaError_t err = lshm::allow_smem(head_dx_kernel<C>, L::dx_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -435,6 +449,30 @@ int dx_pass(const float* x, const float* w0, const float* b0, const float* w1,
   head_dx_kernel<C><<<B * tps * tps, kThreads, L::dx_bytes, stream>>>(
       x, w0, b0, w1, b1, dpre1, P, tps, dx);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd_c(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+          int B, int P, int C, void* out, cudaStream_t stream) {
+  auto p = [](const void* v) { return static_cast<const T*>(v); };
+  T* o = static_cast<T*>(out);
+  if (C == 4)
+    return fwd<T, 4, false>(p(x), p(w0), p(b0), p(w1), p(b1), nullptr, B, P, o, stream);
+  if (C == 8)
+    return fwd<T, 8, false>(p(x), p(w0), p(b0), p(w1), p(b1), nullptr, B, P, o, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int bwd_c(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+          const void* g1, int B, int P, int C, float* partial, float* grads,
+          cudaStream_t stream) {
+  auto p = [](const void* v) { return static_cast<const T*>(v); };
+  if (C == 4)
+    return bwd<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, partial, grads, stream);
+  if (C == 8)
+    return bwd<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, partial, grads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -449,22 +487,21 @@ int head_bwd_blocks(int B, int P) {
   return n < kBwdBlocks ? n : kBwdBlocks;
 }
 
-// x [B, P, P, C] NHWC, P % 4 == 0, C in {4, 8}; out [B, P/4, P/4, 12] NHWC.
-int head_fwd(const float* x, const float* w0, const float* b0, const float* w1,
-             const float* b1, int B, int P, int C, float* out, cudaStream_t stream) {
-  if (C == 4) return fwd<4, false>(x, w0, b0, w1, b1, nullptr, B, P, out, stream);
-  if (C == 8) return fwd<8, false>(x, w0, b0, w1, b1, nullptr, B, P, out, stream);
-  return (int)cudaErrorInvalidValue;
+// x [B, P, P, C] NHWC, P % 4 == 0, C in {4, 8}; out [B, P/4, P/4, 12] NHWC.  Every
+// tensor is float (bf16 = 0) or __nv_bfloat16 (bf16 = 1).
+int head_fwd(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+             int B, int P, int C, int bf16, void* out, cudaStream_t stream) {
+  return bf16 ? fwd_c<__nv_bfloat16>(x, w0, b0, w1, b1, B, P, C, out, stream)
+              : fwd_c<float>(x, w0, b0, w1, b1, B, P, C, out, stream);
 }
 
-// g1 [B, P/4, P/4, 12] NHWC; partial [head_bwd_blocks, head_grad_len] scratch;
-// grads [head_grad_len] = dW0 (OIHW) | db0 | dW1 (OIHW) | db1.
-int head_bwd(const float* x, const float* w0, const float* b0, const float* w1,
-             const float* b1, const float* g1, int B, int P, int C, float* partial,
-             float* grads, cudaStream_t stream) {
-  if (C == 4) return bwd<4>(x, w0, b0, w1, b1, g1, B, P, partial, grads, stream);
-  if (C == 8) return bwd<8>(x, w0, b0, w1, b1, g1, B, P, partial, grads, stream);
-  return (int)cudaErrorInvalidValue;
+// g1 [B, P/4, P/4, 12] NHWC, typed like x; partial [head_bwd_blocks, head_grad_len]
+// float scratch; grads [head_grad_len] float = dW0 (OIHW) | db0 | dW1 (OIHW) | db1.
+int head_bwd(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+             const void* g1, int B, int P, int C, int bf16, float* partial, float* grads,
+             cudaStream_t stream) {
+  return bf16 ? bwd_c<__nv_bfloat16>(x, w0, b0, w1, b1, g1, B, P, C, partial, grads, stream)
+              : bwd_c<float>(x, w0, b0, w1, b1, g1, B, P, C, partial, grads, stream);
 }
 
 // g1 [B, P/4, P/4, 12] NHWC; dpre1 scratch like g1; dx [B, P, P, C] like x.

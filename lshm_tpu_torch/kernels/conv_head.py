@@ -13,10 +13,20 @@ a CUDA tensor, the plain PyTorch version beside them for a CPU tensor.  ``EncHea
 backward runs K5 only when the caller needs the input's gradient and K4 only when it
 needs the weights': the 2D AE's input is data, so training runs K4 alone.
 
-Bound on the H100 at B=420, P=128, C=4: forward 3.08 GFLOP (46 us at 67 TFLOP/s
-FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; weight backward
-7.5 GFLOP (112 us), bound by operations; input backward 6.17 GFLOP (92 us) over
-240.8 MB (72 us), bound by operations.
+dtypes: K3 and K4 take float32 or bfloat16, one dtype for x, the weights, the biases
+and g1 (the bfloat16 compute modes cast all of them, as ``AutoEncoder2D.encode`` does
+in JAX).  In bfloat16 they compute the TPU kernel's function: float32 sums of the
+exact bf16 products, the stage-0 activation rounded to bf16 between the stages, the
+output rounded to bf16; K4 returns float32 sums of the weight gradients, which
+``EncHead``'s backward casts to the weights' dtype (``conv2d_outer.py::_vjp_bwd``).
+K5 takes float32 only.
+
+Bound on the H100 at B=420, P=128, C=4, float32: forward 3.08 GFLOP (46 us at
+67 TFLOP/s FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; weight
+backward 7.5 GFLOP (112 us), bound by operations; input backward 6.17 GFLOP (92 us)
+over 240.8 MB (72 us), bound by operations.  bfloat16: forward and weight backward
+each move 65.4 MB (19.5 us), and their operations take 3.1 and 7.6 us on the bf16
+tensor cores (989 TFLOP/s), so both are bound by bytes.
 """
 
 from __future__ import annotations
@@ -30,8 +40,11 @@ import torch.nn.functional as F
 from lshm_tpu_torch.kernels import _build
 
 F0, F1 = 8, 12                     # the ladder's first two widths
-# launches of each CUDA kernel since the last reset (kernels.reset_launches)
-launches = {"head_fwd": 0, "head_bwd": 0, "head_dx": 0}
+# launches of each CUDA kernel since the last reset (kernels.reset_launches); the
+# bfloat16 forms of K3 and K4 count apart
+launches = {"head_fwd": 0, "head_bwd": 0, "head_dx": 0, "head_fwd_bf16": 0,
+            "head_bwd_bf16": 0}
+DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -41,18 +54,20 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("conv_head")
     lib.head_grad_len.argtypes, lib.head_grad_len.restype = [_I], _I
     lib.head_bwd_blocks.argtypes, lib.head_bwd_blocks.restype = [_I, _I], _I
-    lib.head_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P]
+    lib.head_fwd.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
     lib.head_fwd.restype = _I
-    lib.head_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+    lib.head_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
     lib.head_bwd.restype = _I
     lib.head_dx.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
     lib.head_dx.restype = _I
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the conv-head kernel takes float32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+           dtype: torch.dtype) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the conv-head kernel takes {dtype} here (x's dtype), "
+                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the conv-head kernel takes a contiguous tensor")
     if tuple(t.shape) != shape:
@@ -68,34 +83,53 @@ def _check_inputs(x, w0, b0, w1, b1) -> tuple[int, int, int]:
     if P != P2 or P % 4 or C not in (4, 8):
         raise ValueError(f"enc_head: x {tuple(x.shape)} needs P == W, P % 4 == 0, "
                          "C in (4, 8)")
-    _check("x", x, tuple(x.shape), x.device)
-    _check("w0", w0, (F0, C, 4, 4), x.device)
-    _check("b0", b0, (F0,), x.device)
-    _check("w1", w1, (F1, F0, 4, 4), x.device)
-    _check("b1", b1, (F1,), x.device)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x: the conv-head kernel takes float32 or bfloat16, got {x.dtype}")
+    _check("x", x, tuple(x.shape), x.device, x.dtype)
+    _check("w0", w0, (F0, C, 4, 4), x.device, x.dtype)
+    _check("b0", b0, (F0,), x.device, x.dtype)
+    _check("w1", w1, (F1, F0, 4, 4), x.device, x.dtype)
+    _check("b1", b1, (F1,), x.device, x.dtype)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"enc_head: unsupported device {x.device}")
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError("x: the conv-head kernel loads whole pixels from a 16-byte "
+                         "aligned address")
     return B, P, C
 
 
 # ------------------------------------------------------------------ plain versions
 
-def enc_head_plain(x, w0, b0, w1, b1) -> torch.Tensor:
-    """The head in plain PyTorch: two strided convolutions with ELU, NHWC in and out."""
-    h = x.permute(0, 3, 1, 2)
-    h = F.elu(F.conv2d(h, w0, b0, stride=2, padding=1))
+def _head_f32(x, w0, b0, w1, b1, round_e0: bool) -> torch.Tensor:
+    """Both stages in float32, NHWC in and out; ``round_e0`` rounds the stage-0
+    activation to bf16 with an identity gradient (the TPU kernel's rounding, which
+    its backward does not see: it takes elu' of the unrounded a0)."""
+    h = F.elu(F.conv2d(x.permute(0, 3, 1, 2), w0, b0, stride=2, padding=1))
+    if round_e0:
+        h = h + (h.to(torch.bfloat16).float() - h).detach()
     h = F.elu(F.conv2d(h, w1, b1, stride=2, padding=1))
-    return h.permute(0, 2, 3, 1).contiguous()
+    return h.permute(0, 2, 3, 1)
+
+
+def enc_head_plain(x, w0, b0, w1, b1) -> torch.Tensor:
+    """The head in plain PyTorch: two strided convolutions with ELU, NHWC in and out.
+    On bfloat16 inputs it computes the TPU kernel's function: the inputs upcast, both
+    convolutions in float32, e0 rounded to bf16 between them, the output rounded to
+    bf16 (not bf16 convolutions, which would round a0 before the ELU)."""
+    if x.dtype == torch.bfloat16:
+        f = [t.float() for t in (x, w0, b0, w1, b1)]
+        return _head_f32(*f, round_e0=True).to(torch.bfloat16).contiguous()
+    return _head_f32(x, w0, b0, w1, b1, round_e0=False).contiguous()
 
 
 def head_grads_plain(x, w0, b0, w1, b1, g1, input_grad: bool = False):
     """Gradients of ``<g1, enc_head_plain(...)>`` w.r.t. (w0, b0, w1, b1) [and x
-    first, when ``input_grad``], by autograd through the plain version."""
+    first, when ``input_grad``], by autograd through the plain version: float32."""
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_() for t in (x, w0, b0, w1, b1)]
-        y = enc_head_plain(*ins)
+        ins = [t.detach().float().requires_grad_() for t in (x, w0, b0, w1, b1)]
+        y = _head_f32(*ins, round_e0=x.dtype == torch.bfloat16)
         wrt = ins if input_grad else ins[1:]
-        return torch.autograd.grad(y, wrt, g1)
+        return torch.autograd.grad(y, wrt, g1.float())
 
 
 # ---------------------------------------------------------------- kernel wrappers
@@ -106,23 +140,26 @@ def head_forward(x, w0, b0, w1, b1) -> torch.Tensor:
     if x.device.type == "cpu":
         return enc_head_plain(x, w0, b0, w1, b1)
     lib = _lib()
-    out = torch.empty((B, P // 4, P // 4, F1), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty((B, P // 4, P // 4, F1), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.head_fwd(x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-                                  w1.data_ptr(), b1.data_ptr(), B, P, C, out.data_ptr(),
-                                  stream), "head_fwd")
-    launches["head_fwd"] += 1
+                                  w1.data_ptr(), b1.data_ptr(), B, P, C, int(bf16),
+                                  out.data_ptr(), stream), "head_fwd")
+    launches["head_fwd_bf16" if bf16 else "head_fwd"] += 1
     return out
 
 
 def head_weight_grads(x, w0, b0, w1, b1, g1):
-    """K4: (dw0, db0, dw1, db1) for the output cotangent g1 (NHWC)."""
+    """K4: (dw0, db0, dw1, db1) for the output cotangent g1 (NHWC, x's dtype): float32
+    sums in any dtype."""
     B, P, C = _check_inputs(x, w0, b0, w1, b1)
-    _check("g1", g1, (B, P // 4, P // 4, F1), x.device)
+    _check("g1", g1, (B, P // 4, P // 4, F1), x.device, x.dtype)
     if x.device.type == "cpu":
         return head_grads_plain(x, w0, b0, w1, b1, g1)
     lib = _lib()
+    bf16 = x.dtype == torch.bfloat16
     n = lib.head_grad_len(C)
     grads = torch.empty(n, dtype=torch.float32, device=x.device)
     partial = torch.empty((lib.head_bwd_blocks(B, P), n), dtype=torch.float32,
@@ -131,18 +168,20 @@ def head_weight_grads(x, w0, b0, w1, b1, g1):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.head_bwd(x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
                                   w1.data_ptr(), b1.data_ptr(), g1.data_ptr(), B, P, C,
-                                  partial.data_ptr(), grads.data_ptr(), stream),
+                                  int(bf16), partial.data_ptr(), grads.data_ptr(), stream),
                      "head_bwd")
-    launches["head_bwd"] += 1
+    launches["head_bwd_bf16" if bf16 else "head_bwd"] += 1
     sizes = (w0.numel(), F0, w1.numel(), F1)
     dw0, db0, dw1, db1 = torch.split(grads, sizes)
     return dw0.view(w0.shape), db0, dw1.view(w1.shape), db1
 
 
 def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
-    """K5: dx (NHWC, like x) for the output cotangent g1 (NHWC)."""
+    """K5: dx (NHWC, like x) for the output cotangent g1 (NHWC); float32 only."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"x: the input-gradient kernel takes float32, got {x.dtype}")
     B, P, C = _check_inputs(x, w0, b0, w1, b1)
-    _check("g1", g1, (B, P // 4, P // 4, F1), x.device)
+    _check("g1", g1, (B, P // 4, P // 4, F1), x.device, x.dtype)
     if x.device.type == "cpu":
         return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0]
     lib = _lib()
@@ -159,7 +198,8 @@ def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
 
 class EncHead(torch.autograd.Function):
     """The head with a backward that rematerialises both stages: K5 for the input's
-    gradient, K4 for the weights', each only when asked for."""
+    gradient, K4 for the weights' (its float32 sums cast to the weights' dtype once,
+    as the JAX custom VJP does), each only when asked for."""
 
     @staticmethod
     def forward(ctx, x, w0, b0, w1, b1):
@@ -172,7 +212,7 @@ class EncHead(torch.autograd.Function):
         g1 = g1.contiguous()
         dx = (head_input_grad(x, w0, b0, w1, b1, g1)
               if ctx.needs_input_grad[0] else None)
-        dw = (head_weight_grads(x, w0, b0, w1, b1, g1)
+        dw = (tuple(g.to(w0.dtype) for g in head_weight_grads(x, w0, b0, w1, b1, g1))
               if any(ctx.needs_input_grad[1:]) else (None,) * 4)
         return (dx, *dw)
 

@@ -13,6 +13,12 @@ PyTorch's NCHW / NCW with weights in PyTorch's layouts, which are the reference'
 ``lshm_tpu_torch.params`` bridges Flax params exactly.  Initialisation draws from
 flax's distributions (lecun-normal kernels, zero biases) through an explicit
 ``torch.Generator``; the bits differ from JAX, the distributions do not.
+
+``dtype`` is the compute dtype (float32 by default, the parameters'), with Flax's ``dtype=``
+rule (``lshm_tpu/models/autoencoders.py:352-377``): every conv, transposed conv and
+dense layer casts its input, weight and bias to it and returns it, and the ELUs run
+in it.  The parameters stay float32; the casts are explicit, not ``torch.autocast``,
+which picks dtypes op by op.
 """
 
 from __future__ import annotations
@@ -62,12 +68,43 @@ def uv_harmonic_features(uv: torch.Tensor, scales: Sequence[float]) -> torch.Ten
     return torch.cat([torch.sin(k), torch.cos(k)], dim=-1)              # [N, 4H]
 
 
+def _run(m: nn.Module, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``m`` on ``h`` with its input, weight and bias cast to the compute
+    ``dtype`` and its output in it (the casts do nothing in float32)."""
+    h, w, b = h.to(dtype), m.weight.to(dtype), m.bias.to(dtype)
+    if isinstance(m, nn.Linear):
+        return F.linear(h, w, b)
+    if isinstance(m, nn.ConvTranspose1d):
+        if h.dtype == torch.bfloat16:
+            return _convt1d_taps(m, h, w, b)
+        return F.conv_transpose1d(h, w, b, m.stride, m.padding, m.output_padding)
+    if isinstance(m, nn.ConvTranspose2d):
+        return F.conv_transpose2d(h, w, b, m.stride, m.padding, m.output_padding)
+    fn = F.conv1d if isinstance(m, nn.Conv1d) else F.conv2d
+    return fn(h, w, b, m.stride, m.padding)
+
+
+def _convt1d_taps(m: nn.ConvTranspose1d, h: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """The 1D AE's transposed convolution (stride = kernel = 4, no padding) as one
+    matrix product: its taps do not overlap, y[n, o, 4 l + k] = sum_c h[n, c, l]
+    w[c, o, k] + b[o].  Used in bf16, where PyTorch's CPU conv_transpose1d returns a
+    wrong input gradient at [N, 48, 64] -> 24 channels (relative error 1.2 against
+    float32, torch 2.13; tests/test_torch_bf16_train.py)."""
+    k = w.shape[2]
+    assert m.stride == (k,) and m.padding == (0,) and m.output_padding == (0,)
+    n, _, L = h.shape
+    y = torch.einsum("ncl,cok->nolk", h, w).reshape(n, w.shape[1], L * k)
+    return y + b[:, None]
+
+
 class _AutoEncoder(nn.Module):
     """Shared dense heads of the 2D and 1D autoencoders."""
 
     def __init__(self, latent_dim: int, channels: int, harmonic_scales: Sequence[float],
-                 rica: bool, conv, tconv):
+                 rica: bool, conv, tconv, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.latent_dim = latent_dim
         self.channels = channels
         self.harmonic_scales = tuple(harmonic_scales)
@@ -89,22 +126,27 @@ class _AutoEncoder(nn.Module):
             self.fc2in = nn.Linear(latent_dim, latent_dim)
             self.fc2out = nn.Linear(latent_dim, latent_dim)
 
-    def _convs(self, names: str) -> list[nn.Module]:
-        return [getattr(self, f"{names}{i}") for i in range(len(CHANNEL_LADDER))]
+    def _layer(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        return _run(getattr(self, name), h, self.dtype)
+
+    def _encode_convs(self, h: torch.Tensor, first: int = 0) -> torch.Tensor:
+        for i in range(first, len(CHANNEL_LADDER)):
+            h = F.elu(self._layer(f"conv{i}", h))
+        return h
 
     def _encode_top(self, h: torch.Tensor, uvf: torch.Tensor) -> torch.Tensor:
-        u = F.elu(self.fcuv1(uvf))
-        return F.elu(self.fc1(torch.cat([h.reshape(h.shape[0], -1), u], dim=-1)))
+        u = F.elu(self._layer("fcuv1", uvf))
+        return F.elu(self._layer("fc1", torch.cat([h.reshape(h.shape[0], -1), u], dim=-1)))
 
     def _decode_bottleneck(self, z: torch.Tensor, uvf: torch.Tensor) -> torch.Tensor:
-        u = F.elu(self.fcuv3(uvf))
-        return self.fc3(torch.cat([z, u], dim=-1))        # no activation (ref :91)
+        u = F.elu(self._layer("fcuv3", uvf))
+        return self._layer("fc3", torch.cat([z, u], dim=-1))   # no activation (ref :91)
 
     def _decode_convs(self, h: torch.Tensor) -> torch.Tensor:
-        tconvs = self._convs("tconv")
-        for t in tconvs[:-1]:
-            h = F.elu(t(h))
-        return tconvs[-1](h)                               # linear output stage
+        last = len(CHANNEL_LADDER) - 1
+        for i in range(last):
+            h = F.elu(self._layer(f"tconv{i}", h))
+        return self._layer(f"tconv{last}", h)             # linear output stage
 
     def forward(self, x: torch.Tensor, uv: torch.Tensor):
         """Returns (reconstruction, latent), both in the JAX package's layout.  With
@@ -114,39 +156,41 @@ class _AutoEncoder(nn.Module):
         mu = self.encode(x, uvf)
         if not self.rica:
             return self.decode(mu, uvf), mu
-        mu = F.elu(self.fc2in(mu))
-        return self.decode(F.elu(self.fc2out(mu)), uvf), mu
+        mu = F.elu(self._layer("fc2in", mu))
+        return self.decode(F.elu(self._layer("fc2out", mu)), uvf), mu
 
 
 class AutoEncoder2D(_AutoEncoder):
     """2D conv AE on NHWC [N, P, P, C] patches; 6 stride-2 stages reduce P to P/64 = 2.
 
     ``pallas_head``: run the two outermost encoder stages (conv0 + ELU + conv1 + ELU)
-    through the fused kernel (``kernels.enc_head``), on the same parameters."""
+    through the fused kernel (``kernels.enc_head``), on the same parameters; the
+    head's input and its four parameters are cast to the compute ``dtype`` first
+    (``lshm_tpu/models/autoencoders.py:389-391``)."""
 
     def __init__(self, latent_dim: int = 224, channels: int = 4,
                  harmonic_scales: Sequence[float] = (1e-4, 1e-3, 1e-2, 1e-1),
                  rica: bool = True, pallas_head: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__(
             latent_dim, channels, harmonic_scales, rica,
             conv=lambda i, o: nn.Conv2d(i, o, 4, stride=2, padding=1),
             # torch ConvTranspose2d(4, s=2, p=1): out = 2 * in
             tconv=lambda i, o: nn.ConvTranspose2d(i, o, 4, stride=2, padding=1),
+            dtype=dtype,
         )
         self.pallas_head = pallas_head
         init_flax_like_(self, generator)
 
     def encode(self, x: torch.Tensor, uvf: torch.Tensor) -> torch.Tensor:
-        convs = self._convs("conv")
         if self.pallas_head:
-            c0, c1 = convs[0], convs[1]
-            h = enc_head(x, c0.weight, c0.bias, c1.weight, c1.bias).permute(0, 3, 1, 2)
-            convs = convs[2:]
+            c0, c1 = self.conv0, self.conv1
+            h = enc_head(*(t.to(self.dtype) for t in (x, c0.weight, c0.bias, c1.weight,
+                                                      c1.bias))).permute(0, 3, 1, 2)
+            h = self._encode_convs(h, first=2)
         else:
-            h = x.permute(0, 3, 1, 2)                      # NHWC -> NCHW
-        for c in convs:
-            h = F.elu(c(h))
+            h = self._encode_convs(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
         return self._encode_top(h, uvf)                    # flatten in (c, h, w) order
 
     def decode(self, z: torch.Tensor, uvf: torch.Tensor) -> torch.Tensor:
@@ -160,19 +204,19 @@ class AutoEncoder1D(_AutoEncoder):
 
     def __init__(self, latent_dim: int = 16, channels: int = 4,
                  harmonic_scales: Sequence[float] = (1e-4, 1e-3, 1e-2, 1e-1),
-                 rica: bool = True, generator: torch.Generator | None = None):
+                 rica: bool = True, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
         super().__init__(
             latent_dim, channels, harmonic_scales, rica,
             conv=lambda i, o: nn.Conv1d(i, o, 4, stride=4, padding=1),
             # torch ConvTranspose1d(4, s=4, p=0): out = 4 * in
             tconv=lambda i, o: nn.ConvTranspose1d(i, o, 4, stride=4, padding=0),
+            dtype=dtype,
         )
         init_flax_like_(self, generator)
 
     def encode(self, x: torch.Tensor, uvf: torch.Tensor) -> torch.Tensor:
-        h = x.permute(0, 2, 1)                             # NWC -> NCW
-        for c in self._convs("conv"):
-            h = F.elu(c(h))
+        h = self._encode_convs(x.permute(0, 2, 1))         # NWC -> NCW
         return self._encode_top(h, uvf)                    # flatten in (c, pos) order
 
     def decode(self, z: torch.Tensor, uvf: torch.Tensor) -> torch.Tensor:

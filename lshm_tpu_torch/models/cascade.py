@@ -10,6 +10,11 @@
 
 Inputs and outputs are NHWC like the JAX module.  Submodule names (ae2d, aeT, aeF, khm)
 match the Flax param tree, so ``lshm_tpu_torch.params`` maps one onto the other.
+
+Under the bfloat16 compute dtypes the three AEs compute in bf16 and their outputs and
+latents are cast back to the input's dtype (``lshm_tpu/models/cascade.py:152-154,
+195-197``): float32 under ``bfloat16``, bf16 under ``bfloat16_full`` (whose step casts
+the input batch).  The KHM head's centroids stay float32.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ class CascadedAE(nn.Module):
         c = cfg if cfg is not None else ModelConfig()
         check_model_supported(c)
         self.cfg = c
+        dtype = torch.bfloat16 if c.compute_dtype.startswith("bfloat16") else torch.float32
         common = dict(channels=c.num_channels, harmonic_scales=c.harmonic_scales,
-                      rica=c.rica, generator=generator)
+                      rica=c.rica, dtype=dtype, generator=generator)
         self.ae2d = AutoEncoder2D(latent_dim=c.latent_dim, pallas_head=c.pallas_head,
                                   **common)
         self.aeT = AutoEncoder1D(latent_dim=c.latent_dim_1d, **common)
@@ -61,10 +67,11 @@ class CascadedAE(nn.Module):
 
     def forward(self, x: torch.Tensor, uv: torch.Tensor) -> CascadeOutputs:
         n, h, w, ch = x.shape
-        x1, mu = self.ae2d(x, uv)
+        like_x = lambda *ts: [t.to(x.dtype) for t in ts]
+        x1, mu = like_x(*self.ae2d(x, uv))
         x11 = (x - x1) * 0.5
-        yyT, muT = self.aeT(x11.reshape(n, h * w, ch), uv)
-        yyF, muF = self.aeF(x11.transpose(1, 2).reshape(n, w * h, ch), uv)
+        yyT, muT = like_x(*self.aeT(x11.reshape(n, h * w, ch), uv))
+        yyF, muF = like_x(*self.aeF(x11.transpose(1, 2).reshape(n, w * h, ch), uv))
         x2 = yyT.reshape(n, h, w, ch)
         x3 = yyF.reshape(n, w, h, ch).transpose(1, 2)
         return CascadeOutputs(

@@ -5,8 +5,8 @@ k=4, s=2, p=1, 4 -> 8 channels on 128 x 128 patches.  It checks the kernel again
 plain version first (``parity``), then times, with CUDA events, the kernel
 (``conv0_elu``), the plain version (``conv0_elu_plain``: permutes around cuDNN) and the
 library yardstick (cuDNN's ``F.elu(F.conv2d(...))`` on NCHW-contiguous input), and
-prints each as a JSON line with the bound.  float32 only: the probe's bfloat16 default
-waits for the port's mixed precision.
+prints each as a JSON line with the bound.  float32 only: K6 in bfloat16, the JAX
+probe's default dtype, is not ported yet.
 
 Usage (on the card):  python -m lshm_tpu_torch.tools.conv0_probe [--batch 420]
 """

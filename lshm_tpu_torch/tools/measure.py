@@ -9,6 +9,9 @@ import torch
 
 PEAK_BYTES_S = 3.35e12             # H100 SXM HBM3
 PEAK_FP32_FLOP_S = 67e12           # H100 SXM FP32 outside the tensor cores
+# H100 SXM dense bf16 on the tensor cores: the unit that may compute a function of
+# bf16 inputs summed in float32, since the bf16 products are exact there
+PEAK_BF16_TC_FLOP_S = 989e12
 REPEATS = 20
 
 
@@ -28,8 +31,11 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time (ms) on the H100 for moving ``nbytes`` and doing ``flops`` FP32
-    operations, and which of the two sets it."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_FLOP_S * 1e3
+def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_FP32_FLOP_S
+          ) -> tuple[float, str]:
+    """Least time (ms) on the H100 for moving ``nbytes`` and doing ``flops``
+    operations at ``peak_flop_s`` (the peak of the unit that may compute them: FP32
+    for float32 inputs, ``PEAK_BF16_TC_FLOP_S`` for bf16 ones), and which of the two
+    sets it."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flop_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")

@@ -7,7 +7,8 @@ full augmented-Lagrangian objective, then the Lagrange-multiplier update}.  PyTo
 eagerly, so the ADMM loop is a Python loop whichever of ``train.admm_unroll`` and
 ``train.admm_unroll_lbfgs`` the config holds (in JAX they choose how the loop is
 lowered, with the same math); metrics come back as stacked [admm_iters] tensors per
-term, like the JAX steps.
+term, like the JAX steps.  Under ``compute_dtype="bfloat16_full"`` both steps cast the
+minibatch to bf16 once at entry (``_input_cast``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,16 @@ class TrainState:
     model: CascadedAE
     opt: torch.optim.Optimizer | LBFGSState
     step: int = 0
+
+
+def _input_cast(cfg: Config) -> Callable:
+    """The minibatch cast of the full-bf16 data path (``lshm_tpu/train/step.py:38-49``):
+    under ``bfloat16_full`` the batch becomes bf16, and with it the AE outputs, the
+    residuals and the duals (``Duals.zeros_like(x)``); the losses still sum in float32
+    and the parameters and optimizer state stay float32."""
+    if cfg.model.compute_dtype == "bfloat16_full":
+        return lambda a: a.to(torch.bfloat16)
+    return lambda a: a
 
 
 def _loss_kw(cfg: Config) -> dict:
@@ -77,9 +88,11 @@ def make_train_step(cfg: Config, num_groups: int) -> Callable:
     ``num_groups`` = baselines per minibatch (the augmentation grouping)."""
     nadmm = cfg.train.admm_iters
     kw = _loss_kw(cfg)
+    cast_in = _input_cast(cfg)
 
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor, w: LossWeights):
         model, opt = state.model, state.opt
+        x = cast_in(x)
         duals = Duals.zeros_like(x)
         history = []
         for _ in range(nadmm):
@@ -146,10 +159,12 @@ def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all") -> C
     kw = _loss_kw(cfg)
     value_fn = lbfgs_objective(cfg, num_groups)
     lbfgs_step = make_lbfgs_step(value_and_grad(value_fn), value_fn, cfg.optim.lbfgs)
+    cast_in = _input_cast(cfg)
 
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor,
                    w: LossWeights):
         model = state.model
+        x = cast_in(x)
         named = dict(model.named_parameters())
         params = active_params(model, group)
         frozen = {n: p.detach() for n, p in named.items() if n not in params}

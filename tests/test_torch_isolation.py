@@ -76,13 +76,17 @@ def _head_inputs():
             torch.randn(12, 8, 4, 4), torch.zeros(12))
 
 
-@pytest.mark.parametrize("bad", ["float64", "non-contiguous"])
+@pytest.mark.parametrize("bad", ["float64", "non-contiguous", "mixed"])
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    """float64; a non-contiguous tensor; one tensor in bf16 among float32 ones (the
+    KHM kernel takes float32 only, the head one dtype for all its tensors)."""
+    cast = {"float64": torch.float64, "mixed": torch.bfloat16}.get(bad)
+
     def spoil(t):
-        return t.double() if bad == "float64" else t.t().contiguous().t()
+        return t.to(cast) if cast else t.t().contiguous().t()
 
     X, M = _khm_inputs()
-    err = TypeError if bad == "float64" else ValueError
+    err = TypeError if cast else ValueError
     with pytest.raises(err):
         khm.khm_forward(spoil(X), M, 4)
     _, e = khm.khm_forward(X, M, 4)
@@ -90,13 +94,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(bad):
         khm.khm_backward(X, spoil(M), e, torch.tensor(1.0), 4)
 
     x, w0, b0, w1, b1 = _head_inputs()
-    bad_x = x.double() if bad == "float64" else x.permute(0, 2, 1, 3)
+    bad_x = x.to(cast) if cast else x.permute(0, 2, 1, 3)
     with pytest.raises(err):
         conv_head.head_forward(bad_x, w0, b0, w1, b1)
     g1 = torch.randn(2, 4, 4, 12)
     with pytest.raises(err):
         conv_head.head_weight_grads(x, w0, b0, w1, b1,
-                                    g1.double() if bad == "float64" else g1.transpose(1, 2))
+                                    g1.to(cast) if cast else g1.transpose(1, 2))
 
 
 def test_kernel_wrappers_refuse_wrong_shapes():
@@ -114,7 +118,7 @@ def test_kernel_wrappers_refuse_wrong_shapes():
 
 UNPORTED = {
     "model.fourier_variant": lambda c: _rep(c, "model", fourier_variant=True),
-    "model.compute_dtype": lambda c: _rep(c, "model", compute_dtype="bfloat16"),
+    "model.packed_conv2d": lambda c: _rep(c, "model", packed_conv2d=1),
     "train.mesh_shape": lambda c: _rep(c, "train", mesh_shape=(4,)),
     "train.remat": lambda c: _rep(c, "train", remat=True),
     "data.device_decode": lambda c: _rep(c, "data", device_decode=True),
@@ -155,14 +159,23 @@ def test_lbfgs_configs_are_supported(how):
 
 
 def test_lbfgs_preset_as_published_still_needs_bfloat16():
-    """preset("full_khm_lbfgs") keeps the JAX preset's bfloat16 activations, which the
-    port has not ported yet."""
+    """preset("full_khm_lbfgs") keeps the JAX preset's bfloat16 activations, and the
+    port now runs them: the preset is supported as published and a Trainer builds."""
     cfg = tc.preset("full_khm_lbfgs")
     assert cfg.model.compute_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="model.compute_dtype"):
+    tc.check_supported(cfg)
+    assert Trainer(cfg, device="cpu").state is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bfloat16_full", "float16"])
+def test_compute_dtypes(dtype):
+    """The three compute dtypes of the JAX package are supported; any other raises."""
+    cfg = _rep(tc.Config(), "model", compute_dtype=dtype)
+    if dtype == "float16":
+        with pytest.raises(ValueError, match="compute_dtype"):
+            tc.check_supported(cfg)
+    else:
         tc.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="model.compute_dtype"):
-        Trainer(cfg, device="cpu")
 
 
 def test_input_gradient_wrapper_refuses_what_the_kernel_does_not_take():
