@@ -7,12 +7,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device     card name and power limit, torch and CUDA versions, TF32 flags
   2. build      compile the CUDA kernels from csrc/ (one nvcc per source, in parallel)
   3. parity     each kernel of K1-K5 against its plain PyTorch version at the main
-                path's shapes (relative max error 1e-5 forward, 2e-5 gradients),
-                bit-identical repeats of the three backward kernels, and CUDA-event
-                timings (median of 20 after warm-up, tools/measure.py) of kernel, plain
-                version and library yardstick; then K3 and K4 in bfloat16 the same way
-                (output 4e-3, one bf16 ulp of the largest value, with the share of
-                elements that differ at all; K4's float32 sums before the cast 1e-4,
+                path's shapes (K1/K2 at D = 256 and at the Fourier cascade's 288;
+                relative max error 1e-5 forward, 2e-5 gradients), bit-identical repeats
+                of the three backward kernels, and CUDA-event timings (median of 20
+                after warm-up, tools/measure.py) of kernel, plain version and library
+                yardstick; then K3, K4 and K5 in bfloat16 the same way (K3's output
+                4e-3, K5's dx one bf16 ulp of the largest value, each with the share of
+                elements that differ at all; K4's float32 sums before the cast 1e-4;
                 bit-identical repeats; yardsticks in bf16, channels-last)
   4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
@@ -23,25 +24,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6. trainer_bf16     the same run of preset full_khm_bf16 (bfloat16_full): K1, K2 and
                 the bf16 K3 and K4 launch 30, 30, 60 and 30 times; then the first ADMM
                 iteration of the first minibatch from the same initial parameters
-                through full_khm_bf16 and full_khm, per-term losses within JAX's
-                bf16 gate 0.05 |f32| + 5e-3 (tests/test_bf16.py:101-120)
-  7. head_input_grad  enc_head on a CUDA x that needs its gradient: K3, K4 and K5
-                launch, and dx matches autograd through the plain version
-  8. conv0_probe      the port's probe tool (its parity check, then K6, its plain
-                version and cuDNN timed) at batch 420, then K6's parity at 420 (1e-5):
-                K6's row of the kernels line
-  9. lbfgs      the full-width Trainer through the published recipe's Adam -> L-BFGS
+                in bfloat16_full and in float32, per-term losses within JAX's bf16 gate
+                0.05 |f32| + 5e-3 (tests/test_bf16.py:101-120)
+  7. trainer_fourier  the same run of preset fourier_cascade (the legacy Fourier
+                pipeline, latent 224 + 64): K1, K2, K3 and K4 launch exactly 30, 30, 60
+                and 30 times, K5 never; then agree_fourier (as 5) and its first ADMM
+                iteration in bfloat16_full against float32 (as 6)
+  8. head_input_grad  enc_head on a CUDA x that needs its gradient, in float32 and in
+                bf16: K3, K4 and K5 of each dtype launch; float32 dx against autograd
+                through the plain version (2e-5), bf16 dx within one bf16 ulp and
+                bit-identical over two calls
+  9. conv0_probe      the port's probe tool at batch 420, at its default dtype (bf16)
+                and in float32 (its parity check, then K6, its plain version and cuDNN
+                timed), then K6's parity at 420 in each dtype (float32 1e-5, bf16 one
+                ulp): K6's two rows of the kernels line
+  10. lbfgs     the full-width Trainer through the published recipe's Adam -> L-BFGS
                 switch (preset full_khm_lbfgs as published, bfloat16, its prefetch on):
                 4 epochs x 1 minibatch x 2 ADMM iterations over the groups ae2d, ae1d,
                 khm, ae2d, and its checkpoint; per epoch, timed around the step alone,
                 its kind, group, ms and closure evaluations per ADMM iteration, host
                 synchronisations, peak memory and K1-K4 launches
-  10. agree_lbfgs     the L-BFGS closure in float32 (value, every gradient) through the
+  11. agree_lbfgs     the L-BFGS closure in float32 (value, every gradient) through the
                 kernels (K1-K4 launched) against the plain path (none launched), within
                 1e-4 / 2e-4, and one L-BFGS ADMM iteration through each with both
                 func_evals printed
-Each path (4, 6, 7, 8, 9) is driven with the launch counts set to 0 just before it and
-read just after.  Then the kernels table as one JSON line, the card's name and power
+Each path (4, 6, 7, 8, 9, 10) is driven with the launch counts set to 0 just before it
+and read just after.  Then the kernels table as one JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}} as the last line.  Without a CUDA device it
 exits 2 before printing any result.  It imports nothing of JAX or of the JAX package.
 """
@@ -60,6 +68,8 @@ import torch
 
 ADAM_PATH = ("khm_fwd", "khm_bwd", "head_fwd", "head_bwd")    # K1-K4
 BF16_PATH = ("khm_fwd", "khm_bwd", "head_fwd_bf16", "head_bwd_bf16")   # K3, K4 in bf16
+HEAD_PATH = ("head_fwd", "head_bwd", "head_dx")                 # EncHead, x's gradient
+HEAD_BF16_PATH = ("head_fwd_bf16", "head_bwd_bf16", "head_dx_bf16")
 PATCHES = 420                  # 12 baselines x 35 patches: one full-width minibatch
 
 
@@ -103,7 +113,9 @@ def khm_phase(dev) -> list[dict]:
 
     g = torch.Generator().manual_seed(0)
     rows = []
-    for N, Kc, D in ((420, 10, 256), (2500, 10, 256)):
+    # the full_khm latent (224 + 2 x 16), the fourier_cascade one (224 + 64), and a
+    # larger batch at the first
+    for N, Kc, D in ((420, 10, 256), (420, 10, 288), (2500, 10, 256)):
         X = torch.randn(N, D, generator=g).to(dev)
         M = torch.rand(Kc, D, generator=g).to(dev)
         gg = torch.tensor(0.01, device=dev)          # the main path's alpha
@@ -126,15 +138,18 @@ def khm_phase(dev) -> list[dict]:
         flops_dist = 2.0 * N * Kc * D + 2.0 * N * D + 2.0 * Kc * D
         b1 = bound(4.0 * (N * D + Kc * D + N + 1), flops_dist + 6.0 * N * Kc)
         b2 = bound(4.0 * (2 * N * D + 2 * Kc * D + N + 1), flops_dist + 4.0 * N * Kc * D)
+        # the D = 256 rows count their launches on the main path, the D = 288 rows on
+        # the Fourier trainer's
+        at, path = ("", "trainer") if D == 256 else (f" (D={D})", "trainer_fourier")
         rows += [
-            dict(name="K1 khm_fwd", route="cuda", source="lshm_tpu_torch/csrc/khm.cu",
-                 replaces="lshm_tpu/kernels/khm_pallas.py:71", counter="khm_fwd",
+            dict(name=f"K1 khm_fwd{at}", route="cuda", source="lshm_tpu_torch/csrc/khm.cu",
+                 replaces="lshm_tpu/kernels/khm_pallas.py:71", counter="khm_fwd", path=path,
                  max_abs_err=max(abs_err(loss, loss_p), abs_err(e, e_p)),
                  ms=time_ms(lambda: K.khm_forward(X, M, 4)),
                  plain_ms=time_ms(lambda: K.khm_forward_plain(X, M, 4)),
                  bound_ms=b1[0], bound_by=b1[1], library_ms=None),
-            dict(name="K2 khm_bwd", route="cuda", source="lshm_tpu_torch/csrc/khm.cu",
-                 replaces="lshm_tpu/kernels/khm_pallas.py:92", counter="khm_bwd",
+            dict(name=f"K2 khm_bwd{at}", route="cuda", source="lshm_tpu_torch/csrc/khm.cu",
+                 replaces="lshm_tpu/kernels/khm_pallas.py:92", counter="khm_bwd", path=path,
                  max_abs_err=max(abs_err(dX, dX_p), abs_err(dM, dM_p)),
                  ms=time_ms(lambda: K.khm_backward(X, M, e, gg, 4)),
                  plain_ms=time_ms(lambda: K.khm_backward_plain(X, M, e_p, gg, 4)),
@@ -228,6 +243,7 @@ def head_phase(dev) -> list[dict]:
              bound_ms=b4[0], bound_by=b4[1], library_ms=time_ms(cudnn_bwd)),
         dict(name="K5 head_dx", route="cuda", source="lshm_tpu_torch/csrc/conv_head.cu",
              replaces="lshm_tpu/kernels/conv2d_outer.py:404", counter="head_dx",
+             path="head_input_grad",
              max_abs_err=abs_err(dx, dx_p),
              ms=time_ms(lambda: H.head_input_grad(x, w0, b0, w1, b1, g1)),
              plain_ms=time_ms(lambda: H.head_grads_plain(x, w0, b0, w1, b1, g1,
@@ -237,7 +253,8 @@ def head_phase(dev) -> list[dict]:
 
 
 def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
-    """K3 and K4 on the same inputs rounded to bf16, against their plain versions."""
+    """K3, K4 and K5 on the same inputs rounded to bf16, against their plain
+    versions."""
     import torch.nn.functional as F
 
     from lshm_tpu_torch.kernels import conv_head as H
@@ -250,18 +267,23 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     gr = H.head_weight_grads(*args, g1b)       # the float32 sums, before EncHead's cast
     gr_p = H.head_grads_plain(*args, g1b)
     gr2 = H.head_weight_grads(*args, g1b)
+    dx = H.head_input_grad(*args, g1b)
+    dx_p = dx_plain_bf16(*args, g1b)
+    dx2 = H.head_input_grad(*args, g1b)
     torch.cuda.synchronize()
     row = {"phase": "parity", "kernel": "conv_head_bf16", "x": list(xb.shape),
            "fwd_rel_err": rel_err(y.float(), y_p.float()),
            "fwd_differing_share": float((y != y_p).float().mean()),
            "bwd_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
            "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
-           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
+           **dx_agreement(dx, dx_p, dx2)}
     emit(row)
     # K3 bf16 rounds where its plain version rounds, and on the H100 no element of the
     # two differs: a kernel that drops or moves the rounding of e0 fails here
     if (row["fwd_rel_err"] > 4e-3 or row["fwd_differing_share"] != 0.0
-            or row["bwd_rel_err"] > 1e-4 or not row["bwd_bit_identical"]):
+            or row["bwd_rel_err"] > 1e-4 or not row["bwd_bit_identical"]
+            or not row["dx_within_one_ulp"] or not row["dx_bit_identical"]):
         raise AssertionError(f"bf16 conv-head kernels disagree with their plain versions: "
                              f"{row}")
 
@@ -278,6 +300,12 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     def cudnn_bwd():      # backward from saved activations, no recompute
         return torch.autograd.grad(y_graph, ws, g1_cl, retain_graph=True)
 
+    x_req = x_cl.clone().requires_grad_()          # channels-last, like x_cl
+    y_dx = F.elu(F.conv2d(F.elu(F.conv2d(x_req, w0b, b0b, 2, 1)), w1b, b1b, 2, 1))
+
+    def cudnn_dx():       # cuDNN's bf16 data gradient of the same graph
+        return torch.autograd.grad(y_dx, x_req, g1_cl, retain_graph=True)
+
     B, P, _, C = xb.shape
     F0, F1 = w0.shape[0], w1.shape[0]
     in_b, out_b = 2.0 * B * P * P * C, 2.0 * B * (P // 4) ** 2 * F1
@@ -286,6 +314,9 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     mac1 = B * (P // 4) ** 2 * F1 * 16 * F0
     b3 = bound(in_b + out_b + w_b, 2.0 * (mac0 + mac1), PEAK_BF16_TC_FLOP_S)
     b4 = bound(in_b + out_b + 2 * w_b, 2.0 * (2 * mac0 + 3 * mac1), PEAK_BF16_TC_FLOP_S)
+    b5 = bound(2 * in_b + out_b + w_b, 2.0 * (2 * mac0 + 2 * mac1), PEAK_BF16_TC_FLOP_S)
+    # what K5's two passes move: x twice, g1, the float32 dpre1 written and read, dx
+    k5_moved = 3 * in_b + out_b + 2 * 4.0 * B * (P // 4) ** 2 * F1
     src, tpu = "lshm_tpu_torch/csrc/conv_head.cu", "lshm_tpu/kernels/conv2d_outer.py"
     return [
         dict(name="K3 head_fwd (bf16)", route="cuda", source=src, replaces=f"{tpu}:233",
@@ -299,12 +330,42 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
              ms=time_ms(lambda: H.head_weight_grads(*args, g1b)),
              plain_ms=time_ms(lambda: H.head_grads_plain(*args, g1b)),
              bound_ms=b4[0], bound_by=b4[1], library_ms=time_ms(cudnn_bwd)),
+        dict(name="K5 head_dx (bf16)", route="cuda", source=src, replaces=f"{tpu}:404",
+             counter="head_dx_bf16", path="head_input_grad",
+             max_abs_err=abs_err(dx.float(), dx_p.float()),
+             ms=time_ms(lambda: H.head_input_grad(*args, g1b)),
+             plain_ms=time_ms(lambda: dx_plain_bf16(*args, g1b)),
+             bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx),
+             kernel_moves_mb=k5_moved / 1e6),
     ]
 
 
-# --------------------------------------------------------------------- phases 4, 5
+def dx_plain_bf16(x, w0, b0, w1, b1, g1) -> torch.Tensor:
+    """K5's plain version on bf16 inputs: the float32 autograd gradient, rounded once
+    (what ``head_input_grad`` returns for a CPU tensor)."""
+    from lshm_tpu_torch.kernels import conv_head as H
 
-def flagship_config(tmpdir: str, name: str = "full_khm"):
+    return H.head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0].to(x.dtype)
+
+
+def dx_agreement(dx, dx_p, dx2) -> dict:
+    """bf16 dx of the kernel against its plain version: the largest difference,
+    against one bf16 ulp of the plain version's largest value, the share of elements
+    that differ, and whether two kernel calls agree bit for bit."""
+    from lshm_tpu_torch.tools.measure import bf16_ulp
+
+    err, top = abs_err(dx.float(), dx_p.float()), float(dx_p.float().abs().max())
+    return {"dx_max_abs_err": err, "dx_one_ulp_of_max": bf16_ulp(top),
+            "dx_within_one_ulp": err <= bf16_ulp(top),
+            "dx_differing_share": float((dx != dx_p).float().mean()),
+            "dx_bit_identical": bool(torch.equal(dx, dx2))}
+
+
+# ---------------------------------------------------------------- phases 4 to 7
+
+def flagship_config(tmpdir: str, name: str = "full_khm", compute_dtype: str | None = None):
+    """Preset ``name`` at full width through the kernels, 3 minibatches x 10 ADMM
+    iterations (``compute_dtype`` replaces the preset's where it is given)."""
     import dataclasses
 
     from lshm_tpu_torch.config import preset
@@ -312,7 +373,8 @@ def flagship_config(tmpdir: str, name: str = "full_khm"):
     cfg = preset(name)
     return dataclasses.replace(
         cfg,
-        model=dataclasses.replace(cfg.model, khm_backend="pallas", pallas_head=True),
+        model=dataclasses.replace(cfg.model, khm_backend="pallas", pallas_head=True,
+                                  compute_dtype=compute_dtype or cfg.model.compute_dtype),
         train=dataclasses.replace(cfg.train, admm_iters=10, iters_per_epoch=3,
                                   num_epochs=1, checkpoint_dir=tmpdir),
     )
@@ -363,25 +425,34 @@ def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
     return counts
 
 
+def expect_launches(counts: dict, expected: dict, what: str) -> None:
+    if any(counts[k] != v for k, v in expected.items()):
+        raise AssertionError(f"{what} launches {counts}, expected {expected}")
+
+
 def trainer_bf16_phase(tree, tmpdir: str) -> dict:
-    """The Adam trainer run of preset full_khm_bf16; then the first ADMM iteration of
-    the trainer's first minibatch from the same initial parameters in bfloat16_full and
-    in float32 (both through the kernels), per-term losses within JAX's bf16 gate."""
+    """The Adam trainer run of preset full_khm_bf16, then ``bf16_first_iteration``."""
+    counts = trainer_phase(tree, tmpdir, "full_khm_bf16", BF16_PATH, "trainer_bf16")
+    expect_launches(counts, {"khm_fwd": 30, "khm_bwd": 30, "head_fwd_bf16": 60,
+                             "head_bwd_bf16": 30, "head_fwd": 0, "head_bwd": 0},
+                    "bf16 trainer")
+    bf16_first_iteration(tree, tmpdir, "full_khm", "trainer_bf16_first_iteration")
+    return counts
+
+
+def bf16_first_iteration(tree, tmpdir: str, name: str, phase: str) -> None:
+    """The first ADMM iteration of the trainer's first minibatch of preset ``name``
+    from the same initial parameters in float32 and in bfloat16_full (both through the
+    kernels): per-term losses within JAX's bf16 gate."""
     import dataclasses
 
     from lshm_tpu_torch.data import MinibatchSampler
     from lshm_tpu_torch.train import LossWeights, init_train_state, make_train_step
 
-    counts = trainer_phase(tree, tmpdir, "full_khm_bf16", BF16_PATH, "trainer_bf16")
-    expected = {"khm_fwd": 30, "khm_bwd": 30, "head_fwd_bf16": 60, "head_bwd_bf16": 30,
-                "head_fwd": 0, "head_bwd": 0}
-    if any(counts[k] != v for k, v in expected.items()):
-        raise AssertionError(f"bf16 trainer launches {counts}, expected {expected}")
-
     dev = torch.device("cuda")
     first = {}
-    for name in ("full_khm", "full_khm_bf16"):
-        cfg = flagship_config(tmpdir, name)
+    for dtype in ("float32", "bfloat16_full"):
+        cfg = flagship_config(tmpdir, name, dtype)
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, admm_iters=1))
         sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
         sampler.reseed(0)                          # as Trainer.run's first epoch
@@ -390,18 +461,34 @@ def trainer_bf16_phase(tree, tmpdir: str) -> dict:
         w = LossWeights(alpha=cfg.loss.alpha, beta=cfg.loss.beta, gamma=cfg.loss.gamma,
                         rho=cfg.loss.rho, rica_lambda=cfg.loss.rica_lambda)
         _, m = make_train_step(cfg, mb.num_baselines)(init_train_state(cfg, dev), x, uv, w)
-        first[name] = {k: float(v[0]) for k, v in m.items()}
-    f32, bf16 = first["full_khm"], first["full_khm_bf16"]
+        first[dtype] = {k: float(v[0]) for k, v in m.items()}
+    f32, bf16 = first["float32"], first["bfloat16_full"]
     gap = {k: abs(f32[k] - bf16[k]) / (0.05 * abs(f32[k]) + 5e-3) for k in f32}
-    emit({"phase": "trainer_bf16_first_iteration", "float32": f32, "bfloat16_full": bf16,
+    emit({"phase": phase, "preset": name, "float32": f32, "bfloat16_full": bf16,
           "gap_over_gate": gap, "rel_gap": {k: abs(f32[k] - bf16[k]) / abs(f32[k])
-                                            for k in f32}})
+                                            for k in f32 if f32[k] != 0.0}})
     if max(gap.values()) > 1.0:
         raise AssertionError(f"bf16 first-iteration losses outside JAX's gate: {gap}")
+
+
+def trainer_fourier_phase(tree, tmpdir: str) -> dict:
+    """The Adam trainer run of preset fourier_cascade (the legacy Fourier pipeline) at
+    full width: K1-K4 launch 30, 30, 60 and 30 times, and K5 never (the head's input is
+    data; the Fourier AE has no fused head).  Then one minibatch through the kernels
+    and through the plain path, and the first ADMM iteration in bfloat16_full against
+    float32."""
+    counts = trainer_phase(tree, tmpdir, "fourier_cascade", ADAM_PATH, "trainer_fourier")
+    expect_launches(counts, {"khm_fwd": 30, "khm_bwd": 30, "head_fwd": 60, "head_bwd": 30,
+                             "head_dx": 0, "head_dx_bf16": 0}, "Fourier trainer")
+    agree_phase(tree, tmpdir, "fourier_cascade", "agree_fourier")
+    bf16_first_iteration(tree, tmpdir, "fourier_cascade", "trainer_fourier_first_iteration")
     return counts
 
 
-def agree_phase(tree, tmpdir: str) -> None:
+def agree_phase(tree, tmpdir: str, name: str = "full_khm", phase: str = "agree") -> None:
+    """One minibatch of preset ``name`` (2 ADMM iterations) through the kernels and
+    through the plain path from the same state, and the cascade forward on the card
+    against the CPU on two patches."""
     import dataclasses
 
     from lshm_tpu_torch.data import MinibatchSampler
@@ -409,7 +496,7 @@ def agree_phase(tree, tmpdir: str) -> None:
     from lshm_tpu_torch.train import LossWeights, init_train_state, make_train_step
 
     dev = torch.device("cuda")
-    cfg_k = flagship_config(tmpdir)
+    cfg_k = flagship_config(tmpdir, name)
     cfg_k = dataclasses.replace(cfg_k, train=dataclasses.replace(cfg_k.train, admm_iters=2))
     cfg_p = dataclasses.replace(cfg_k, model=dataclasses.replace(
         cfg_k.model, khm_backend="xla", pallas_head=False))
@@ -429,18 +516,24 @@ def agree_phase(tree, tmpdir: str) -> None:
     model.to(dev)
     with torch.no_grad():
         out_gpu = model(x[:2], uv[:2])
+    keys = ("xrecon", "Mu") + (("yf_in", "yf_out") if out_cpu.yf_in is not None else ())
     fwd = {k: rel_err(getattr(out_gpu, k).cpu(), getattr(out_cpu, k).detach())
-           for k in ("xrecon", "Mu")}
-    emit({"phase": "agree", "metric_rel_err": worst, "cascade_gpu_vs_cpu_rel_err": fwd,
+           for k in keys}
+    emit({"phase": phase, "metric_rel_err": worst, "cascade_gpu_vs_cpu_rel_err": fwd,
           "kernels_metrics_last": {k: float(v[-1]) for k, v in metrics["kernels"].items()}})
     if max(worst.values()) > 1e-4 or max(fwd.values()) > 1e-4:
         raise AssertionError("kernel path and plain path disagree")
 
 
-# --------------------------------------------------------------------- phases 6, 7
+# --------------------------------------------------------------------- phases 8, 9
 
 def head_input_grad_phase(dev) -> dict:
-    """enc_head with a CUDA x that needs its gradient, backward through EncHead."""
+    """enc_head with a CUDA x that needs its gradient, backward through EncHead, in
+    float32 and in bfloat16 (the same inputs rounded): K3, K4 and K5 of each dtype
+    launch.  float32: dx and the weight gradients against autograd through the plain
+    version (2e-5).  bf16: dx within one bf16 ulp of the plain version's largest value
+    (the share of elements that differ printed) and bit-identical over two backwards;
+    the weight gradients' float32 sums (head_weight_grads, before EncHead's cast) 1e-4."""
     from lshm_tpu_torch.kernels import conv_head as H
     from lshm_tpu_torch.kernels import launch_counts, reset_launches
 
@@ -452,49 +545,72 @@ def head_input_grad_phase(dev) -> dict:
           (torch.randn(12, 8, 4, 4, generator=g) * 0.2).to(dev),
           (torch.randn(12, generator=g) * 0.1).to(dev)]
     g1 = torch.randn(B, P // 4, P // 4, 12, generator=g).to(dev)
-    xr, wr = x.clone().requires_grad_(), [w.clone().requires_grad_() for w in ws]
+    xb, wb, g1b = x.to(torch.bfloat16), [w.to(torch.bfloat16) for w in ws], g1.to(torch.bfloat16)
+
+    def backward(x, ws, g1):
+        xr, wr = x.clone().requires_grad_(), [w.clone().requires_grad_() for w in ws]
+        return torch.autograd.grad(H.enc_head(xr, *wr), [xr, *wr], g1)
+
     reset_launches()
-    dx, *dws = torch.autograd.grad(H.enc_head(xr, *wr), [xr, *wr], g1)
+    dx, *dws = backward(x, ws, g1)
+    dxb, *_ = backward(xb, wb, g1b)
+    dxb2, *_ = backward(xb, wb, g1b)
     torch.cuda.synchronize()
     counts = launch_counts()
     want = H.head_grads_plain(x, *ws, g1, input_grad=True)
-    row = {"phase": "head_input_grad", "launches": {k: counts[k] for k in
-                                                   ("head_fwd", "head_bwd", "head_dx")},
+    sums, sums_p = H.head_weight_grads(xb, *wb, g1b), H.head_grads_plain(xb, *wb, g1b)
+    row = {"phase": "head_input_grad",
+           "launches": {k: counts[k] for k in HEAD_PATH + HEAD_BF16_PATH},
            "dx_rel_err": rel_err(dx, want[0]),
-           "dw_rel_err": max(rel_err(a, b) for a, b in zip(dws, want[1:]))}
+           "dw_rel_err": max(rel_err(a, b) for a, b in zip(dws, want[1:])),
+           "bf16": {**dx_agreement(dxb, dx_plain_bf16(xb, *wb, g1b), dxb2),
+                    "dw_sums_rel_err": max(rel_err(a, b) for a, b in zip(sums, sums_p))}}
     emit(row)
     if any(v == 0 for v in row["launches"].values()):
         raise AssertionError(f"EncHead's backward did not launch K3/K4/K5: {row}")
     if row["dx_rel_err"] > 2e-5 or row["dw_rel_err"] > 2e-5:
         raise AssertionError(f"EncHead's gradients disagree with autograd: {row}")
+    bf = row["bf16"]
+    if (not bf["dx_within_one_ulp"] or not bf["dx_bit_identical"]
+            or bf["dw_sums_rel_err"] > 1e-4):
+        raise AssertionError(f"EncHead's bf16 gradients disagree with the plain version: "
+                             f"{row}")
     return counts
 
 
-def conv0_probe_phase(dev) -> tuple[dict, dict]:
-    """The port's probe tool at batch 420 (its own parity check, then the timings of
-    kernel, plain version and cuDNN), then K6 against its plain version at 420."""
+def conv0_probe_phase(dev) -> tuple[dict, list[dict]]:
+    """The port's probe tool at batch 420 at its default dtype (bfloat16), then in
+    float32 (each: its own parity check, then the timings of kernel, plain version and
+    cuDNN); then K6 of each dtype against its plain version at 420."""
     from lshm_tpu_torch.kernels import launch_counts, reset_launches
     from lshm_tpu_torch.tools import conv0_probe
 
     reset_launches()
-    result = conv0_probe.run(dev, batch=PATCHES)
+    results = {"bfloat16": conv0_probe.main(["--batch", str(PATCHES)]),
+               "float32": conv0_probe.run(dev, batch=PATCHES, dtype="float32")}
     counts = launch_counts()
-    full = conv0_probe.parity(dev, batch=PATCHES, seed=2)
-    emit({"phase": "conv0_probe", "conv0_launches": counts["conv0"], **result,
-          "parity_at_batch": full})
-    if counts["conv0"] == 0:
-        raise AssertionError("the probe did not launch K6")
-    if full["parity_rel_err"] > 1e-5:
-        raise AssertionError(f"conv0 kernel disagrees with its plain version: {full}")
-    row = dict(name="K6 conv0", route="cuda", source="lshm_tpu_torch/csrc/conv0.cu",
-               replaces="benchmarks/pallas_conv_probe.py:56", counter="conv0",
-               max_abs_err=full["parity_max_abs_err"], ms=result["kernel_ms"],
-               plain_ms=result["plain_ms"], bound_ms=result["bound_ms"],
-               bound_by=result["bound_by"], library_ms=result["cudnn_ms"])
-    return counts, row
+    rows = []
+    for dtype, counter in (("bfloat16", "conv0_bf16"), ("float32", "conv0")):
+        result = results[dtype]
+        full = conv0_probe.parity(dev, batch=PATCHES, seed=2, dtype=dtype)
+        emit({"phase": "conv0_probe", "launches": counts[counter], **result,
+              "parity_at_batch": full})
+        if counts[counter] == 0:
+            raise AssertionError(f"the probe did not launch K6 in {dtype}")
+        if full["parity_max_abs_err"] > full["parity_tol_abs"]:
+            raise AssertionError(f"conv0 kernel disagrees with its plain version: {full}")
+        rows.append(dict(
+            name="K6 conv0" + (" (bf16)" if dtype == "bfloat16" else ""), route="cuda",
+            source="lshm_tpu_torch/csrc/conv0.cu",
+            replaces="benchmarks/pallas_conv_probe.py:56", counter=counter,
+            path="conv0_probe", max_abs_err=full["parity_max_abs_err"],
+            ms=result["kernel_ms"], plain_ms=result["plain_ms"],
+            bound_ms=result["bound_ms"], bound_by=result["bound_by"],
+            library_ms=result["cudnn_ms"]))
+    return counts, rows
 
 
-# --------------------------------------------------------------------- phases 8, 9
+# ------------------------------------------------------------------- phases 10, 11
 
 def lbfgs_config(checkpoint_dir: str = "", compute_dtype: str | None = None):
     """preset full_khm_lbfgs (as published, bfloat16 activations, unless
@@ -733,41 +849,56 @@ def main() -> int:
     per_source = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": per_source})
 
-    kernels = khm_phase(dev) + head_phase(dev)
+    seconds = {"build": time.perf_counter() - t0}
 
-    t0 = time.perf_counter()
-    tree = synth_extract(nstations=5, ntime=384, nfreq=512, seed=0)
+    def timed(name, fn, *args):
+        """fn(*args), its host seconds recorded under ``name``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    def in_tmpdir(fn, *args):
+        with tempfile.TemporaryDirectory() as tmpdir:
+            return fn(*args, tmpdir)
+
+    kernels = timed("parity", lambda: khm_phase(dev) + head_phase(dev))
+    tree = timed("data", lambda: synth_extract(nstations=5, ntime=384, nfreq=512, seed=0))
     emit({"phase": "data", "baselines": int(tree["measurement"]["saps"]["0"]
-                                            ["visibilities"].shape[0]),
-          "seconds": time.perf_counter() - t0})
-    with tempfile.TemporaryDirectory() as tmpdir:
-        adam = trainer_phase(tree, tmpdir)
+                                            ["visibilities"].shape[0])})
+    def trainer_and_agree(tmpdir):
+        counts = trainer_phase(tree, tmpdir)
         agree_phase(tree, tmpdir)
-    with tempfile.TemporaryDirectory() as tmpdir:
-        adam_bf16 = trainer_bf16_phase(tree, tmpdir)
-    head = head_input_grad_phase(dev)
-    probe, k6_row = conv0_probe_phase(dev)
-    kernels.append(k6_row)
-    with tempfile.TemporaryDirectory() as tmpdir:
-        lbfgs = lbfgs_phase(dev, tree, tmpdir)
-    agree_lbfgs_phase(dev, tree)
+        return counts
 
-    # launches on each kernel's own path: K1-K4 the Adam trainer (the main path), the
-    # bf16 K3 and K4 the bf16 Adam trainer (their counts on the bf16 L-BFGS recipe
-    # beside), K5 EncHead's backward w.r.t. its input, K6 the probe tool
-    paths = {"head_dx": ("head_input_grad", head), "conv0": ("conv0_probe", probe),
-             "head_fwd_bf16": ("trainer_bf16", adam_bf16),
-             "head_bwd_bf16": ("trainer_bf16", adam_bf16)}
+    adam = timed("trainer", in_tmpdir, trainer_and_agree)
+    adam_bf16 = timed("trainer_bf16", in_tmpdir, lambda d: trainer_bf16_phase(tree, d))
+    fourier = timed("trainer_fourier", in_tmpdir, lambda d: trainer_fourier_phase(tree, d))
+    head = timed("head_input_grad", head_input_grad_phase, dev)
+    probe, k6_rows = timed("conv0_probe", conv0_probe_phase, dev)
+    kernels += k6_rows
+    lbfgs = timed("lbfgs", in_tmpdir, lambda d: lbfgs_phase(dev, tree, d))
+    timed("agree_lbfgs", agree_lbfgs_phase, dev, tree)
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+
+    # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2
+    # at D = 288 the Fourier trainer), the bf16 K3 and K4 the bf16 Adam trainer (their
+    # counts on the bf16 L-BFGS recipe beside), K5 EncHead's backward w.r.t. its input
+    # in either dtype, K6 the probe tool in either dtype
+    runs = {"trainer": adam, "trainer_bf16": adam_bf16, "trainer_fourier": fourier,
+            "head_input_grad": head, "conv0_probe": probe}
+    bf16_trainer = {"head_fwd_bf16", "head_bwd_bf16"}
     for k in kernels:
         counter = k.pop("counter")
-        path, counts = paths.get(counter, ("trainer", adam))
-        k["launches"] = counts[counter]
+        path = k.pop("path", "trainer_bf16" if counter in bf16_trainer else "trainer")
+        k["launches"] = runs[path][counter]
         k["path"] = path
-        k["on_main_path"] = path in ("trainer", "trainer_bf16")
+        k["on_main_path"] = path in ("trainer", "trainer_bf16", "trainer_fourier")
+        k["launches_fourier"] = fourier[counter]
         if counter in lbfgs:
             k["launches_lbfgs"] = lbfgs[counter]
         k["status"] = "ported, held against its plain version"
-    emit({"kernels": kernels, "still_to_port": ["K5 head_dx (bf16)", "K6 conv0 (bf16)"]})
+    emit({"kernels": kernels, "still_to_port": []})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -303,7 +303,6 @@ def check_model_supported(m: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first model field whose code the port
     does not have yet (the JAX package implements all of them)."""
     _raise_unsupported(m, "model.", [
-        ("fourier_variant", m.fourier_variant),
         ("fuse_1d", m.fuse_1d),
         ("fast_conv1d", m.fast_conv1d),
         ("packed_conv2d", m.packed_conv2d > 0),

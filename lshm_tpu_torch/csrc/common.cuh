@@ -32,6 +32,28 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// v[0 .. N) rounded to T and stored at dst, N % 4 == 0: 16-byte float4 stores for
+// float, 8-byte stores of four packed bf16 otherwise (dst aligned to match).
+template <int N, typename T>
+__device__ __forceinline__ void store_vec(T* dst, const float* v) {
+  static_assert(N % 4 == 0, "whole groups of four");
+  if constexpr (std::is_same<T, float>::value) {
+    float4* o = reinterpret_cast<float4*>(dst);
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q)
+      o[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+    uint2* o = reinterpret_cast<uint2*>(dst);
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[4 * q], v[4 * q + 1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[4 * q + 2], v[4 * q + 3]);
+      o[q] = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                        *reinterpret_cast<const unsigned*>(&hi));
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

@@ -8,17 +8,27 @@
 // Layouts: x NHWC [B, P, P, C] (C = 4 or 8, template), w OIHW [8, C, 4, 4], b [8],
 // out NHWC [B, P/2, P/2, 8].
 //
+// Storage type T (template) of x, w, b and the output: float, or __nv_bfloat16 (the
+// probe's default dtype, as in JAX).  Everything inside is float32: the window and the
+// weights are widened in shared memory, so bf16 products are exact, the taps are summed
+// in float32 in the float kernel's order, the bias is added and the ELU taken in
+// float32, and only the store rounds to bf16 — the TPU kernel's function (its dot sums
+// in float32, `preferred_element_type`, and the ELU's result is cast once).
+//
 // Design: staged as the fused head's stage 0 is (conv_head.cu), with the same helpers
 // from common.cuh.  One block per sample x 16 x 16 output tile stages a 34 x 34 input
 // window (18.5 KB for C = 4) and the weights in shared memory; each of its 256
 // threads computes the 8 channels of one output from registers and writes them as
-// two 16-byte stores.  The TPU kernel's space-to-depth packing (one matmul over the
-// packed grid, then four shifted adds) fed Mosaic's matrix unit and is not needed on
-// CUDA cores: a thread reads the strided taps directly.
+// two 16-byte stores (float) or one 16-byte store (bf16).  The TPU kernel's
+// space-to-depth packing (one matmul over the packed grid, then four shifted adds) fed
+// Mosaic's matrix unit and is not needed on CUDA cores: a thread reads the strided taps
+// directly.
 //
-// Bound on the H100 at B=420, P=128, C=4: it reads 110.1 MB and writes 55.1 MB
+// Bound on the H100 at B=420, P=128, C=4: float32 reads 110.1 MB and writes 55.1 MB
 // (49 us at 3.35 TB/s) and does 1.76 GFLOP (26 us at 67 TFLOP/s FP32), so it is bound
 // by bytes: the window is read from device memory about once (34^2 / 32^2 = 1.13x).
+// bf16 moves half the bytes, 82.6 MB (24.6 us), and its operations take 1.8 us on the
+// bf16 tensor cores, so it is bound by bytes too.  This kernel uses the CUDA cores.
 
 #include "common.cuh"
 
@@ -34,10 +44,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kXW * kXW * C + 16 * C * kF + kF);
 }
 
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
-conv0_kernel(const float* __restrict__ x, const float* __restrict__ w,
-             const float* __restrict__ b, int P, int tps, float* __restrict__ out) {
+conv0_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+             int P, int tps, T* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
   float* ws = xw + kXW * kXW * C;
@@ -53,34 +63,42 @@ conv0_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (oy >= H || ox >= H) return;
   float acc[kF];
   lshm::conv_s2_taps<C, kF, kXW>(xw, ws, py, px, acc);
-  float4* o = reinterpret_cast<float4*>(out + (((size_t)n * H + oy) * H + ox) * kF);
-  o[0] = make_float4(lshm::elu(acc[0] + bs[0]), lshm::elu(acc[1] + bs[1]),
-                     lshm::elu(acc[2] + bs[2]), lshm::elu(acc[3] + bs[3]));
-  o[1] = make_float4(lshm::elu(acc[4] + bs[4]), lshm::elu(acc[5] + bs[5]),
-                     lshm::elu(acc[6] + bs[6]), lshm::elu(acc[7] + bs[7]));
+#pragma unroll
+  for (int f = 0; f < kF; ++f) acc[f] = lshm::elu(acc[f] + bs[f]);
+  lshm::store_vec<kF>(out + (((size_t)n * H + oy) * H + ox) * kF, acc);
 }
 
-template <int C>
-int launch(const float* x, const float* w, const float* b, int B, int P, float* out,
+template <typename T, int C>
+int launch(const void* x, const void* w, const void* b, int B, int P, void* out,
            cudaStream_t stream) {
   const size_t bytes = smem_bytes<C>();
-  cudaError_t err = lshm::allow_smem(conv0_kernel<C>, bytes);
+  cudaError_t err = lshm::allow_smem(conv0_kernel<T, C>, bytes);
   if (err != cudaSuccess) return (int)err;
   const int tps = (P / 2 + kT - 1) / kT;
-  conv0_kernel<C><<<B * tps * tps, kThreads, bytes, stream>>>(x, w, b, P, tps, out);
+  conv0_kernel<T, C><<<B * tps * tps, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b), P, tps,
+      static_cast<T*>(out));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_c(const void* x, const void* w, const void* b, int B, int P, int C, void* out,
+             cudaStream_t stream) {
+  if (C == 4) return launch<T, 4>(x, w, b, B, P, out, stream);
+  if (C == 8) return launch<T, 8>(x, w, b, B, P, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [B, P, P, C] NHWC, P % 2 == 0, C in {4, 8}; out [B, P/2, P/2, 8] NHWC.
-int conv0_fwd(const float* x, const float* w, const float* b, int B, int P, int C,
-              float* out, cudaStream_t stream) {
-  if (C == 4) return launch<4>(x, w, b, B, P, out, stream);
-  if (C == 8) return launch<8>(x, w, b, B, P, out, stream);
-  return (int)cudaErrorInvalidValue;
+// x [B, P, P, C] NHWC, P % 2 == 0, C in {4, 8}; out [B, P/2, P/2, 8] NHWC.  Every
+// tensor is float (bf16 = 0) or __nv_bfloat16 (bf16 = 1).
+int conv0_fwd(const void* x, const void* w, const void* b, int B, int P, int C, int bf16,
+              void* out, cudaStream_t stream) {
+  return bf16 ? launch_c<__nv_bfloat16>(x, w, b, B, P, C, out, stream)
+              : launch_c<float>(x, w, b, B, P, C, out, stream);
 }
 
 }  // extern "C"

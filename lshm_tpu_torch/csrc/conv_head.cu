@@ -9,15 +9,16 @@
 // PyTorch's OIHW (w0 [F0, C, 4, 4], w1 [F1, F0, 4, 4]), output NHWC [B, P/4, P/4, F1].
 // C is 4 or 8 (template), F0 = 8 and F1 = 12 (the ladder's first two widths).
 //
-// Storage type T (template) of x, the weights, the biases, g1 and the output: float,
-// or __nv_bfloat16 for the bfloat16 compute modes (K3 and K4; K5 is float only).
-// Everything inside is float32: the window and the weights are widened in shared
-// memory, so bf16 products are exact and every sum is a float32 sum in the same
-// (ky, kx, c) order as the float kernel.  In bf16, as in the TPU kernel, the stage-0
-// activation e0 is rounded to bf16 (the TPU kernel stores it in x's dtype), stage 1
-// sums over the rounded e0, and the output is rounded to bf16; K4 takes elu' of the
-// unrounded float a0, sums dW1 over the rounded e0 and dW0 over x's bf16 values, and
-// returns float32 sums (the wrapper casts them to the weights' dtype).
+// Storage type T (template) of x, the weights, the biases, g1 and the output (dx for
+// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  Everything inside is
+// float32: the window and the weights are widened in shared memory, so bf16 products
+// are exact and every sum is a float32 sum in the same (ky, kx, c) order as the float
+// kernel.  In bf16, as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
+// (the TPU kernel stores it in x's dtype), stage 1 sums over the rounded e0, and the
+// output is rounded to bf16; K4 and K5 take elu' of the unrounded float a0, K4 sums dW1
+// over the rounded e0 and dW0 over x's bf16 values and returns float32 sums (the
+// wrapper casts them to the weights' dtype); K5 keeps dpre1 in float32 (the TPU
+// kernel's z1 scratch is float32) and rounds only dx to bf16.
 //
 // Tiling: one tile = one sample's 8 x 8 block of stage-1 outputs.  It needs an 18 x 18
 // block of stage-0 outputs (the tile plus a 1-pixel halo at stride 2), which needs a
@@ -43,8 +44,8 @@
 // Backward, input (K5), in two passes, each element a gather with no float atomics
 // (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
 // two runs are bit-identical:
-//   1. dpre1 = g1 * elu'(a1) [B, P/4, P/4, F1] to device memory (20.6 MB at B = 420):
-//      the forward kernel with another epilogue.
+//   1. dpre1 = g1 * elu'(a1) [B, P/4, P/4, F1] to device memory, float32 in either
+//      storage type (20.6 MB at B = 420): the forward kernel with another epilogue.
 //   2. One block per 32 x 32 input tile.  Its inputs reach stage-0 positions of the
 //      same 18 x 18 halo tile as the forward's, which reach a 10 x 10 tile of dpre1.
 //      The block stages the 38 x 38 window, recomputes elu'(a0) on the halo tile,
@@ -59,7 +60,10 @@
 // operations.  bfloat16: the forward and the weight backward each move 65.4 MB (x
 // 55.05 MB plus the output or g1, 10.32 MB: 19.5 us), and their 3.08 and 7.5 GFLOP
 // take 3.1 and 7.6 us on the bf16 tensor cores (989 TFLOP/s; bf16 products are exact
-// in a float32 sum), so both are bound by bytes.  These kernels use the CUDA cores.
+// in a float32 sum), so both are bound by bytes; the input backward must move 120.4 MB
+// (x and dx 55.05 MB each, g1: 35.9 us) against 6.2 us of operations, bound by bytes,
+// and its two passes move 216.8 MB (x twice, the float32 dpre1 written and read).
+// These kernels use the CUDA cores.
 
 #include "common.cuh"
 
@@ -190,13 +194,17 @@ __device__ __forceinline__ size_t out_index(Tile t, int H1) {
   return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + grp * kPerGroup;
 }
 
-// kDpre1 = false: out = elu(a1) rounded to T (K3).  kDpre1 = true: out = g1 * elu'(a1),
-// the first pass of the input backward (K5, T = float only).
+// The forward kernel's output type: T for K3, float for the dpre1 pass of K5.
+template <typename T, bool kDpre1>
+using OutT = typename std::conditional<kDpre1, float, T>::type;
+
+// kDpre1 = false: out = elu(a1) rounded to T (K3).  kDpre1 = true: out = g1 * elu'(a1)
+// in float32, the first pass of the input backward (K5).
 template <typename T, int C, bool kDpre1>
 __global__ void __launch_bounds__(kThreads)
 head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
                 const T* __restrict__ w1, const T* __restrict__ b1,
-                const T* __restrict__ g1, int P, int tps, T* __restrict__ out) {
+                const T* __restrict__ g1, int P, int tps, OutT<T, kDpre1>* __restrict__ out) {
   using L = Layout<C>;
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
@@ -215,9 +223,13 @@ head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __re
   if (stage1(e0, w1s, b1s, P / 4, t, a1)) {
     const size_t o = out_index(t, P / 4);
 #pragma unroll
-    for (int j = 0; j < kPerGroup; ++j)
-      out[o + j] = lshm::from_f32<T>(kDpre1 ? lshm::to_f32(g1[o + j]) * lshm::elu_grad(a1[j])
-                                            : lshm::elu(a1[j]));
+    for (int j = 0; j < kPerGroup; ++j) {
+      if constexpr (kDpre1) {
+        out[o + j] = lshm::to_f32(g1[o + j]) * lshm::elu_grad(a1[j]);
+      } else {
+        out[o + j] = lshm::from_f32<T>(lshm::elu(a1[j]));
+      }
+    }
   }
 }
 
@@ -327,12 +339,11 @@ head_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __re
 // Second pass of the input backward: one block per 32 x 32 input tile (tile (ty, tx)
 // covers the inputs of stage-1 tile (ty, tx)).  Halo coordinates: stage-0 position
 // py <-> row 16 ty - 1 + py, dpre1 position qy <-> row 8 ty - 1 + qy.
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
-head_dx_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-               const float* __restrict__ b0, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ dpre1, int P,
-               int tps, float* __restrict__ dx) {
+head_dx_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
+               const T* __restrict__ w1, const T* __restrict__ b1,
+               const float* __restrict__ dpre1, int P, int tps, T* __restrict__ dx) {
   using L = Layout<C>;
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
@@ -357,7 +368,7 @@ head_dx_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                  : 0.0f;
   }
   __syncthreads();
-  stage0<C, float>(xw, w0s, b0s, P / 2, t, e0, d0);
+  stage0<C, T>(xw, w0s, b0s, P / 2, t, e0, d0);
   __syncthreads();
 
   // dpre0[py, px, f0] = elu'(a0) * sum over the taps that reach it (ky = py mod 2)
@@ -400,10 +411,7 @@ head_dx_kernel(const float* __restrict__ x, const float* __restrict__ w0,
         }
       }
     }
-    float4* o = reinterpret_cast<float4*>(dx + (((size_t)t.n * P + iy) * P + ix) * C);
-#pragma unroll
-    for (int q = 0; q < C / 4; ++q)
-      o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    lshm::store_vec<C>(dx + (((size_t)t.n * P + iy) * P + ix) * C, acc);
   }
 }
 
@@ -411,7 +419,7 @@ int tiles_per_side(int P) { return (P / 4 + kT1 - 1) / kT1; }
 
 template <typename T, int C, bool kDpre1>
 int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1, int B,
-        int P, T* out, cudaStream_t stream) {
+        int P, OutT<T, kDpre1>* out, cudaStream_t stream) {
   using L = Layout<C>;
   cudaError_t err = lshm::allow_smem(head_fwd_kernel<T, C, kDpre1>, L::fwd_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -436,17 +444,16 @@ int bwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T*
   return (int)cudaGetLastError();
 }
 
-template <int C>
-int dx_pass(const float* x, const float* w0, const float* b0, const float* w1,
-            const float* b1, const float* g1, int B, int P, float* dpre1, float* dx,
-            cudaStream_t stream) {
+template <typename T, int C>
+int dx_pass(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1,
+            int B, int P, float* dpre1, T* dx, cudaStream_t stream) {
   using L = Layout<C>;
-  const int first = fwd<float, C, true>(x, w0, b0, w1, b1, g1, B, P, dpre1, stream);
+  const int first = fwd<T, C, true>(x, w0, b0, w1, b1, g1, B, P, dpre1, stream);
   if (first != 0) return first;
-  cudaError_t err = lshm::allow_smem(head_dx_kernel<C>, L::dx_bytes);
+  cudaError_t err = lshm::allow_smem(head_dx_kernel<T, C>, L::dx_bytes);
   if (err != cudaSuccess) return (int)err;
   const int tps = tiles_per_side(P);
-  head_dx_kernel<C><<<B * tps * tps, kThreads, L::dx_bytes, stream>>>(
+  head_dx_kernel<T, C><<<B * tps * tps, kThreads, L::dx_bytes, stream>>>(
       x, w0, b0, w1, b1, dpre1, P, tps, dx);
   return (int)cudaGetLastError();
 }
@@ -472,6 +479,18 @@ int bwd_c(const void* x, const void* w0, const void* b0, const void* w1, const v
     return bwd<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, partial, grads, stream);
   if (C == 8)
     return bwd<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, partial, grads, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dx_c(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+         const void* g1, int B, int P, int C, float* dpre1, void* dx, cudaStream_t stream) {
+  auto p = [](const void* v) { return static_cast<const T*>(v); };
+  T* d = static_cast<T*>(dx);
+  if (C == 4)
+    return dx_pass<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+  if (C == 8)
+    return dx_pass<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -504,13 +523,13 @@ int head_bwd(const void* x, const void* w0, const void* b0, const void* w1, cons
               : bwd_c<float>(x, w0, b0, w1, b1, g1, B, P, C, partial, grads, stream);
 }
 
-// g1 [B, P/4, P/4, 12] NHWC; dpre1 scratch like g1; dx [B, P, P, C] like x.
-int head_dx(const float* x, const float* w0, const float* b0, const float* w1,
-            const float* b1, const float* g1, int B, int P, int C, float* dpre1, float* dx,
+// g1 [B, P/4, P/4, 12] NHWC, typed like x; dpre1 float scratch shaped like g1; dx
+// [B, P, P, C] like x.
+int head_dx(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
+            const void* g1, int B, int P, int C, int bf16, float* dpre1, void* dx,
             cudaStream_t stream) {
-  if (C == 4) return dx_pass<4>(x, w0, b0, w1, b1, g1, B, P, dpre1, dx, stream);
-  if (C == 8) return dx_pass<8>(x, w0, b0, w1, b1, g1, B, P, dpre1, dx, stream);
-  return (int)cudaErrorInvalidValue;
+  return bf16 ? dx_c<__nv_bfloat16>(x, w0, b0, w1, b1, g1, B, P, C, dpre1, dx, stream)
+              : dx_c<float>(x, w0, b0, w1, b1, g1, B, P, C, dpre1, dx, stream);
 }
 
 }  // extern "C"

@@ -13,20 +13,23 @@ a CUDA tensor, the plain PyTorch version beside them for a CPU tensor.  ``EncHea
 backward runs K5 only when the caller needs the input's gradient and K4 only when it
 needs the weights': the 2D AE's input is data, so training runs K4 alone.
 
-dtypes: K3 and K4 take float32 or bfloat16, one dtype for x, the weights, the biases
-and g1 (the bfloat16 compute modes cast all of them, as ``AutoEncoder2D.encode`` does
-in JAX).  In bfloat16 they compute the TPU kernel's function: float32 sums of the
-exact bf16 products, the stage-0 activation rounded to bf16 between the stages, the
-output rounded to bf16; K4 returns float32 sums of the weight gradients, which
-``EncHead``'s backward casts to the weights' dtype (``conv2d_outer.py::_vjp_bwd``).
-K5 takes float32 only.
+dtypes: K3, K4 and K5 take float32 or bfloat16, one dtype for x, the weights, the
+biases and g1 (the bfloat16 compute modes cast all of them, as
+``AutoEncoder2D.encode`` does in JAX).  In bfloat16 they compute the TPU kernel's
+function: float32 sums of the exact bf16 products, the stage-0 activation rounded to
+bf16 between the stages, the output rounded to bf16; K4 returns float32 sums of the
+weight gradients, which ``EncHead``'s backward casts to the weights' dtype
+(``conv2d_outer.py::_vjp_bwd``); K5 keeps its intermediate dpre1 = g1 * elu'(a1) in
+float32 and rounds dx once to x's dtype.
 
 Bound on the H100 at B=420, P=128, C=4, float32: forward 3.08 GFLOP (46 us at
 67 TFLOP/s FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; weight
 backward 7.5 GFLOP (112 us), bound by operations; input backward 6.17 GFLOP (92 us)
 over 240.8 MB (72 us), bound by operations.  bfloat16: forward and weight backward
 each move 65.4 MB (19.5 us), and their operations take 3.1 and 7.6 us on the bf16
-tensor cores (989 TFLOP/s), so both are bound by bytes.
+tensor cores (989 TFLOP/s), so both are bound by bytes; the input backward must move
+120.4 MB (35.9 us) against 6.2 us of operations, bound by bytes (its two passes move
+216.8 MB: x is read twice, the float32 dpre1 written and read).
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ from lshm_tpu_torch.kernels import _build
 
 F0, F1 = 8, 12                     # the ladder's first two widths
 # launches of each CUDA kernel since the last reset (kernels.reset_launches); the
-# bfloat16 forms of K3 and K4 count apart
+# bfloat16 forms count apart
 launches = {"head_fwd": 0, "head_bwd": 0, "head_dx": 0, "head_fwd_bf16": 0,
-            "head_bwd_bf16": 0}
+            "head_bwd_bf16": 0, "head_dx_bf16": 0}
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -58,7 +61,7 @@ def _lib() -> ctypes.CDLL:
     lib.head_fwd.restype = _I
     lib.head_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
     lib.head_bwd.restype = _I
-    lib.head_dx.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+    lib.head_dx.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
     lib.head_dx.restype = _I
     return lib
 
@@ -177,22 +180,24 @@ def head_weight_grads(x, w0, b0, w1, b1, g1):
 
 
 def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
-    """K5: dx (NHWC, like x) for the output cotangent g1 (NHWC); float32 only."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"x: the input-gradient kernel takes float32, got {x.dtype}")
+    """K5: dx (NHWC, x's shape and dtype) for the output cotangent g1 (NHWC, x's
+    dtype): a float32 sum rounded once."""
     B, P, C = _check_inputs(x, w0, b0, w1, b1)
     _check("g1", g1, (B, P // 4, P // 4, F1), x.device, x.dtype)
     if x.device.type == "cpu":
-        return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0]
+        return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0].to(x.dtype)
     lib = _lib()
+    bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
-    dpre1 = torch.empty_like(g1)       # first pass: g1 * elu'(a1)
+    # first pass: g1 * elu'(a1), float32 in either dtype (the TPU kernel's z1 scratch)
+    dpre1 = torch.empty(g1.shape, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.head_dx(x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
                                  w1.data_ptr(), b1.data_ptr(), g1.data_ptr(), B, P, C,
-                                 dpre1.data_ptr(), dx.data_ptr(), stream), "head_dx")
-    launches["head_dx"] += 1
+                                 int(bf16), dpre1.data_ptr(), dx.data_ptr(), stream),
+                     "head_dx")
+    launches["head_dx_bf16" if bf16 else "head_dx"] += 1
     return dx
 
 

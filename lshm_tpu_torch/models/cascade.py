@@ -1,5 +1,6 @@
-"""The cascaded autoencoder trio + clustering head (port of the non-Fourier branch of
-``lshm_tpu/models/cascade.py``; reference: src/kharmonic_lofar.py:132-159):
+"""The cascaded autoencoders + clustering head (port of ``lshm_tpu/models/cascade.py``).
+
+Current pipeline (reference: src/kharmonic_lofar.py:132-159):
 
     x1, mu = AE2D(x, uv)
     x11    = (x - x1) / 2                       # halved residual
@@ -8,17 +9,28 @@
     xrecon = x1 + x2 + x3
     Mu     = concat(mu, muT, muF)               # clustering feature
 
-Inputs and outputs are NHWC like the JAX module.  Submodule names (ae2d, aeT, aeF, khm)
-match the Flax param tree, so ``lshm_tpu_torch.params`` maps one onto the other.
+Legacy Fourier pipeline (``model.fourier_variant``; reference: Demo.ipynb cells 6 and
+10, src/EvaluateClusters.ipynb):
 
-Under the bfloat16 compute dtypes the three AEs compute in bf16 and their outputs and
+    x1, mu    = AE2D(x, uv)
+    yf        = clamp(fft2_shifted(x - x1), -10, 10)   # FULL residual, 2C channels
+    yhat, ymu = AE2D_F(yf, uv)                  # second 2D AE in Fourier space
+    Mu        = concat(mu, ymu)
+
+Inputs and outputs are NHWC like the JAX module.  Submodule names (ae2d, aeT, aeF, aef,
+khm) match the Flax param tree, so ``lshm_tpu_torch.params`` maps one onto the other.
+
+Under the bfloat16 compute dtypes the AEs compute in bf16 and their outputs and
 latents are cast back to the input's dtype (``lshm_tpu/models/cascade.py:152-154,
-195-197``): float32 under ``bfloat16``, bf16 under ``bfloat16_full`` (whose step casts
-the input batch).  The KHM head's centroids stay float32.
+161, 195-197``): float32 under ``bfloat16``, bf16 under ``bfloat16_full`` (whose step
+casts the input batch, so the Fourier transform runs in bf16 there, as in JAX).  The
+KHM head's centroids stay float32.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
 
 import torch
@@ -42,11 +54,49 @@ class CascadeOutputs:
     mu: torch.Tensor            # 2D latent                     [N, L]
     muT: torch.Tensor           # time-axis 1D latent           [N, Lt]
     muF: torch.Tensor           # freq-axis 1D latent           [N, Lt]
+    # the Fourier variant's extras (None otherwise)
+    yf_in: torch.Tensor | None = None    # Fourier-space AE input  [N, P, P, 2C]
+    yf_out: torch.Tensor | None = None   # Fourier-space AE recon  [N, P, P, 2C]
+
+
+@functools.cache
+def dft_mats(n: int, dtype: torch.dtype, device: torch.device
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) parts of the orthonormal n-point DFT matrix,
+    F[j, k] = exp(-2 pi i j k / n) / sqrt(n), in ``dtype`` (``_dft_mats`` of the JAX
+    package).  j k is reduced mod n in integers before the trigonometry.  Each step is
+    rounded to ``dtype`` where JAX's computes in it: the angle's scale, the angle, the
+    cos and sin, 1/sqrt(n) and the products (float32 holds each bf16 product exactly,
+    so rounding it once is the bf16 operation).  Built once per (n, dtype, device)."""
+    rnd = lambda t: t.to(dtype).float()
+    k = torch.arange(n)
+    m = rnd(torch.outer(k, k) % n)
+    ang = rnd(m * rnd(torch.tensor(-2.0 * math.pi / n)))
+    s = rnd(1.0 / rnd(torch.sqrt(rnd(torch.tensor(float(n))))))
+    return tuple(rnd(rnd(f(ang)) * s).to(dtype).to(device) for f in (torch.cos, torch.sin))
+
+
+def fft2_shifted(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal 2D DFT over the spatial dims of NHWC x, then fftshift (a roll by
+    n // 2 on both), returned as real | imag channels [N, P, P, 2C] (reference:
+    src/lofar_tools.py:24-30).  As in JAX, dense DFT matrices in x's dtype and six
+    matrix products, without an FFT: axis h is C_h @ x viewed [N, H, W*C], axis w is
+    C_w @ y viewed [N*H, W, C] (F is symmetric)."""
+    n, h, w, c = x.shape
+    Ch, Sh = dft_mats(h, x.dtype, x.device)
+    Cw, Sw = dft_mats(w, x.dtype, x.device)
+    xh = x.reshape(n, h, w * c)
+    yre = (Ch @ xh).view(n * h, w, c)
+    yim = (Sh @ xh).view(n * h, w, c)
+    zre = Cw @ yre - Sw @ yim
+    zim = Sw @ yre + Cw @ yim
+    z = torch.cat([zre, zim], dim=-1).view(n, h, w, 2 * c)
+    return torch.roll(z, (h // 2, w // 2), dims=(1, 2))
 
 
 class CascadedAE(nn.Module):
-    """Flagship model: AE2D + (AE1D_T, AE1D_F) + KHM head.  ``generator`` seeds the
-    initialisation (drawn on the CPU; move the module with ``.to(device)``)."""
+    """Flagship model: AE2D + (AE1D_T, AE1D_F | AE2D_Fourier) + KHM head.  ``generator``
+    seeds the initialisation (drawn on the CPU; move the module with ``.to(device)``)."""
 
     def __init__(self, cfg: ModelConfig | None = None,
                  generator: torch.Generator | None = None):
@@ -55,12 +105,18 @@ class CascadedAE(nn.Module):
         check_model_supported(c)
         self.cfg = c
         dtype = torch.bfloat16 if c.compute_dtype.startswith("bfloat16") else torch.float32
-        common = dict(channels=c.num_channels, harmonic_scales=c.harmonic_scales,
-                      rica=c.rica, dtype=dtype, generator=generator)
-        self.ae2d = AutoEncoder2D(latent_dim=c.latent_dim, pallas_head=c.pallas_head,
-                                  **common)
-        self.aeT = AutoEncoder1D(latent_dim=c.latent_dim_1d, **common)
-        self.aeF = AutoEncoder1D(latent_dim=c.latent_dim_1d, **common)
+        common = dict(harmonic_scales=c.harmonic_scales, rica=c.rica, dtype=dtype,
+                      generator=generator)
+        ch = c.num_channels
+        self.ae2d = AutoEncoder2D(latent_dim=c.latent_dim, channels=ch,
+                                  pallas_head=c.pallas_head, **common)
+        if c.fourier_variant:
+            # real + imag channels; no fused head (lshm_tpu/models/cascade.py:113-122)
+            self.aef = AutoEncoder2D(latent_dim=c.latent_dim_fourier, channels=2 * ch,
+                                     **common)
+        else:
+            self.aeT = AutoEncoder1D(latent_dim=c.latent_dim_1d, channels=ch, **common)
+            self.aeF = AutoEncoder1D(latent_dim=c.latent_dim_1d, channels=ch, **common)
         self.khm = KHarmonicMeans(latent_dim=c.total_latent_dim,
                                   num_clusters=c.num_clusters, order=c.khm_order,
                                   generator=generator)
@@ -70,6 +126,16 @@ class CascadedAE(nn.Module):
         like_x = lambda *ts: [t.to(x.dtype) for t in ts]
         x1, mu = like_x(*self.ae2d(x, uv))
         x11 = (x - x1) * 0.5
+        if self.cfg.fourier_variant:
+            # the full residual, with the notebooks' stability clamp
+            yf_in = torch.clamp(fft2_shifted(x - x1), -10.0, 10.0)
+            yf_out, ymu = like_x(*self.aef(yf_in, uv))
+            zero = torch.zeros_like(x)
+            return CascadeOutputs(
+                x1=x1, x11=x11, x2=zero, x3=zero, xrecon=x1,
+                Mu=torch.cat([mu, ymu], dim=-1), mu=mu, muT=ymu, muF=ymu[:, :0],
+                yf_in=yf_in, yf_out=yf_out,
+            )
         yyT, muT = like_x(*self.aeT(x11.reshape(n, h * w, ch), uv))
         yyF, muF = like_x(*self.aeF(x11.transpose(1, 2).reshape(n, w * h, ch), uv))
         x2 = yyT.reshape(n, h, w, ch)

@@ -23,7 +23,7 @@ from typing import Any, Mapping
 import numpy as np
 
 _C_LADDER = (8, 12, 24, 48, 96, 192)
-_AE_NDIM = {"ae2d": 2, "aeT": 1, "aeF": 1}
+_AE_NDIM = {"ae2d": 2, "aeT": 1, "aeF": 1, "aef": 2}   # aef: the Fourier variant's AE
 
 
 def _np(v: Any) -> np.ndarray:

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import math
 import statistics
 
 import torch
@@ -39,3 +40,9 @@ def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_FP32_FLOP_S
     sets it."""
     tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flop_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bfloat16 values at magnitude ``v`` (8 significant bits): the
+    tolerance "one bf16 ulp of the largest value"."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)

@@ -1,5 +1,5 @@
-"""The cascaded ADMM / augmented-Lagrangian training objective (port of the non-Fourier
-branch of ``lshm_tpu/train/objective.py``; reference: src/kharmonic_lofar.py:132-202):
+"""The cascaded ADMM / augmented-Lagrangian training objective (port of
+``lshm_tpu/train/objective.py``; reference: src/kharmonic_lofar.py:132-202):
 
     loss0 = ||xrecon - x||^2 / numel                           total reconstruction
     loss1 = (y1 . (x - x1)   + rho/2 ||x - x1||^2) / numel     2D AE ADMM term
@@ -14,6 +14,12 @@ with the Lagrange-multiplier update y_k <- y_k + rho * residual_k after each opt
 step, from a fresh forward pass at the new parameters (``dual_update`` for the Adam
 step; ``metrics_and_dual_update``, the port of the JAX function of that name, shares
 that forward with the metrics for the L-BFGS step).
+
+The Fourier variant (outputs with ``yf_in``) has two AEs: loss0 adds the Fourier
+reconstruction ||yf_out - yf_in||^2 / numel(yf_in), loss2 is the ADMM term on the full
+2C-channel Fourier residual yf_in - yf_out normalised by its own numel, loss3 is 0 and
+RICA takes (mu, muT).  The reference notebooks never define ADMM for that pipeline;
+this is the JAX package's specified deviation, kept as it is.
 """
 
 from __future__ import annotations
@@ -45,15 +51,19 @@ class LossWeights:
 class Duals:
     """ADMM Lagrange multipliers, one per AE consistency constraint, shaped like the
     residual they multiply; reset to zero per minibatch (reference:
-    src/kharmonic_lofar.py:128-130)."""
+    src/kharmonic_lofar.py:128-130).  For the Fourier variant y2 is shaped like the
+    Fourier residual [N, P, P, 2C] and y3 is empty."""
 
     y1: torch.Tensor
     y2: torch.Tensor
     y3: torch.Tensor
 
     @classmethod
-    def zeros_like(cls, x: torch.Tensor) -> "Duals":
+    def zeros_like(cls, x: torch.Tensor, fourier: bool = False) -> "Duals":
         z = torch.zeros_like(x)
+        if fourier:
+            return cls(y1=z, y2=x.new_zeros((*x.shape[:-1], 2 * x.shape[-1])),
+                       y3=x.new_zeros((0,)))
         return cls(y1=z, y2=z, y3=z)
 
 
@@ -65,17 +75,28 @@ def loss_from_outputs(out, M: torch.Tensor, x: torch.Tensor, duals: Duals, w: Lo
     groups are baseline-major).  ``khm_backend`` "pallas"/"auto" takes the fused KHM
     kernel, "xla" the plain expression."""
     numel = x.numel()
+    loss0 = mse_sum(out.xrecon, x) / numel
+    if out.yf_in is not None:
+        nf = out.yf_in.numel()
+        loss0 = loss0 + mse_sum(out.yf_out, out.yf_in) / nf
+        loss2 = admm_term(duals.y2, out.yf_in - out.yf_out, w.rho) / nf
+        loss3 = torch.zeros((), device=x.device)
+        latents = (out.mu, out.muT)
+    else:
+        loss2 = admm_term(duals.y2, out.x11 - out.x2, w.rho) / numel
+        loss3 = admm_term(duals.y3, out.x11 - out.x3, w.rho) / numel
+        latents = (out.mu, out.muT, out.muF)
     metrics = {
-        "loss0": mse_sum(out.xrecon, x) / numel,
+        "loss0": loss0,
         "loss1": admm_term(duals.y1, x - out.x1, w.rho) / numel,
-        "loss2": admm_term(duals.y2, out.x11 - out.x2, w.rho) / numel,
-        "loss3": admm_term(duals.y3, out.x11 - out.x3, w.rho) / numel,
+        "loss2": loss2,
+        "loss3": loss3,
         "kdist": w.alpha * khm_loss_fused(out.Mu, M, khm_order, backend=khm_backend),
         "sim": w.beta * cluster_similarity_loss(M),
         "aug": w.gamma * augmentation_loss(out.Mu, num_groups),
     }
     if use_rica:
-        metrics["rica"] = w.rica_lambda * rica_loss(out.mu, out.muT, out.muF)
+        metrics["rica"] = w.rica_lambda * rica_loss(*latents)
     total = sum(metrics.values())
     metrics["loss"] = total
     return total, metrics
@@ -91,8 +112,11 @@ def cascade_objective(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
 
 
 def _updated(out, x: torch.Tensor, duals: Duals, rho: float) -> Duals:
+    y1 = duals.y1 + rho * (x - out.x1)
+    if out.yf_in is not None:
+        return Duals(y1=y1, y2=duals.y2 + rho * (out.yf_in - out.yf_out), y3=duals.y3)
     return Duals(
-        y1=duals.y1 + rho * (x - out.x1),
+        y1=y1,
         y2=duals.y2 + rho * (out.x11 - out.x2),
         y3=duals.y3 + rho * (out.x11 - out.x3),
     )

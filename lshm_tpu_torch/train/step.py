@@ -8,7 +8,8 @@ eagerly, so the ADMM loop is a Python loop whichever of ``train.admm_unroll`` an
 ``train.admm_unroll_lbfgs`` the config holds (in JAX they choose how the loop is
 lowered, with the same math); metrics come back as stacked [admm_iters] tensors per
 term, like the JAX steps.  Under ``compute_dtype="bfloat16_full"`` both steps cast the
-minibatch to bf16 once at entry (``_input_cast``).
+minibatch to bf16 once at entry (``_input_cast``).  Under ``model.fourier_variant`` the
+second dual is shaped like the Fourier residual (``Duals.zeros_like``).
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ def make_train_step(cfg: Config, num_groups: int) -> Callable:
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor, w: LossWeights):
         model, opt = state.model, state.opt
         x = cast_in(x)
-        duals = Duals.zeros_like(x)
+        duals = Duals.zeros_like(x, fourier=cfg.model.fourier_variant)
         history = []
         for _ in range(nadmm):
             model.zero_grad(set_to_none=True)
@@ -168,7 +169,7 @@ def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all") -> C
         named = dict(model.named_parameters())
         params = active_params(model, group)
         frozen = {n: p.detach() for n, p in named.items() if n not in params}
-        duals = Duals.zeros_like(x)
+        duals = Duals.zeros_like(x, fourier=cfg.model.fourier_variant)
         history = []
         for _ in range(nadmm):
             res = lbfgs_step(params, state.opt, model, frozen, x, uv, duals, w)

@@ -116,7 +116,9 @@ def test_wrappers_refuse_mixed_dtypes_and_bf16_input_gradient():
     with pytest.raises(TypeError):
         tk.head_weight_grads(xb, *bw, torch.tensor(ct))         # f32 g1
     with pytest.raises(TypeError):
-        tk.head_input_grad(xb, *bw, _bf16(ct))                  # K5 is float32 only
+        tk.head_input_grad(xb, w0t, b0t, w1t, b1t, _bf16(ct))   # bf16 x, f32 weights
+    with pytest.raises(TypeError):
+        tk.head_input_grad(xb, *bw, torch.tensor(ct))           # f32 g1
     xr = xb.clone().requires_grad_()
     with pytest.raises(TypeError):
-        tk.enc_head(xr, *bw).float().sum().backward()
+        tk.enc_head(xr, w0t, b0t, w1t, b1t).float().sum().backward()

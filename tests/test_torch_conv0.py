@@ -43,6 +43,8 @@ def test_conv0_refuses_what_the_kernel_does_not_take():
     x, w, b = torch.randn(2, 16, 16, 4), torch.randn(8, 4, 4, 4), torch.zeros(8)
     with pytest.raises(TypeError):
         k6.conv0_elu(x.double(), w, b)
+    with pytest.raises(TypeError):
+        k6.conv0_elu(x.to(torch.bfloat16), w, b)         # bf16 x, float32 weights
     with pytest.raises(ValueError):
         k6.conv0_elu(x.permute(0, 2, 1, 3), w, b)
     with pytest.raises(ValueError):

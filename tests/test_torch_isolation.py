@@ -117,7 +117,7 @@ def test_kernel_wrappers_refuse_wrong_shapes():
 
 
 UNPORTED = {
-    "model.fourier_variant": lambda c: _rep(c, "model", fourier_variant=True),
+    "model.fuse_1d": lambda c: _rep(c, "model", fuse_1d=True),
     "model.packed_conv2d": lambda c: _rep(c, "model", packed_conv2d=1),
     "train.mesh_shape": lambda c: _rep(c, "train", mesh_shape=(4,)),
     "train.remat": lambda c: _rep(c, "train", remat=True),

@@ -131,7 +131,6 @@ def test_khm_head_matches_flax():
 
 
 def test_unported_model_fields_raise():
-    for kw in (dict(fourier_variant=True), dict(fuse_1d=True), dict(fast_conv1d=True),
-               dict(packed_conv2d=1)):
+    for kw in (dict(fuse_1d=True), dict(fast_conv1d=True), dict(packed_conv2d=1)):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             CascadedAE(ModelConfig(**kw))
