@@ -13,8 +13,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 after warm-up, tools/measure.py) of kernel, plain version and library
                 yardstick; then K3, K4 and K5 in bfloat16 the same way (K3's output
                 4e-3, K5's dx one bf16 ulp of the largest value, each with the share of
-                elements that differ at all; K4's float32 sums before the cast 1e-4;
-                bit-identical repeats; yardsticks in bf16, channels-last)
+                elements that differ at all; K4's float32 sums before the cast 1e-4, at
+                C = 4 and at C = 8 (B = 16); bit-identical repeats; yardsticks in bf16,
+                channels-last)
   4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
                 synthetic extract held in memory, with every kernel's launch count
@@ -270,19 +271,22 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     dx = H.head_input_grad(*args, g1b)
     dx_p = dx_plain_bf16(*args, g1b)
     dx2 = H.head_input_grad(*args, g1b)
+    c8 = head_bwd_bf16_c8(x.device)
     torch.cuda.synchronize()
     row = {"phase": "parity", "kernel": "conv_head_bf16", "x": list(xb.shape),
            "fwd_rel_err": rel_err(y.float(), y_p.float()),
            "fwd_differing_share": float((y != y_p).float().mean()),
            "bwd_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
            "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
+           "bwd_rel_err_vs_f64": vs_f64(gr, gr_p, (*args, g1b)),
            "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
-           **dx_agreement(dx, dx_p, dx2)}
+           **c8, **dx_agreement(dx, dx_p, dx2)}
     emit(row)
     # K3 bf16 rounds where its plain version rounds, and on the H100 no element of the
     # two differs: a kernel that drops or moves the rounding of e0 fails here
     if (row["fwd_rel_err"] > 4e-3 or row["fwd_differing_share"] != 0.0
             or row["bwd_rel_err"] > 1e-4 or not row["bwd_bit_identical"]
+            or row["bwd_c8_rel_err"] > 1e-4 or not row["bwd_c8_bit_identical"]
             or not row["dx_within_one_ulp"] or not row["dx_bit_identical"]):
         raise AssertionError(f"bf16 conv-head kernels disagree with their plain versions: "
                              f"{row}")
@@ -325,7 +329,7 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
              plain_ms=time_ms(lambda: H.enc_head_plain(*args)),
              bound_ms=b3[0], bound_by=b3[1], library_ms=time_ms(cudnn_fwd)),
         dict(name="K4 head_bwd (bf16)", route="cuda", source=src, replaces=f"{tpu}:334",
-             counter="head_bwd_bf16",
+             counter="head_bwd_bf16", arch="mma.sync m16n8k16 bf16, 3-piece split",
              max_abs_err=max(abs_err(a, b) for a, b in zip(gr, gr_p)),
              ms=time_ms(lambda: H.head_weight_grads(*args, g1b)),
              plain_ms=time_ms(lambda: H.head_grads_plain(*args, g1b)),
@@ -338,6 +342,39 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
              bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx),
              kernel_moves_mb=k5_moved / 1e6),
     ]
+
+
+def head_bwd_bf16_c8(dev) -> dict:
+    """K4 bf16 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the tensor-core
+    products) against its plain version, and two calls bit for bit."""
+    from lshm_tpu_torch.kernels import conv_head as H
+
+    B, P, C = 16, 128, 8
+    g = torch.Generator().manual_seed(3)
+    args = [torch.randn(B, P, P, C, generator=g), torch.randn(8, C, 4, 4, generator=g) * 0.2,
+            torch.randn(8, generator=g) * 0.1, torch.randn(12, 8, 4, 4, generator=g) * 0.2,
+            torch.randn(12, generator=g) * 0.1, torch.randn(B, P // 4, P // 4, 12, generator=g)]
+    args = [t.to(dev, torch.bfloat16) for t in args]
+    gr, gr2 = H.head_weight_grads(*args), H.head_weight_grads(*args)
+    gr_p = H.head_grads_plain(*args)
+    return {"bwd_c8_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
+            "bwd_c8_rel_err_vs_f64": vs_f64(gr, gr_p, args),
+            "bwd_c8_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+
+
+def vs_f64(gr, gr_p, args) -> dict:
+    """K4 bf16's float32 sums (kernel and plain version) against the plain version with
+    its convolutions in float64 and e0 still rounded to bf16: a0 summed in another
+    order can round an e0 near a bf16 tie the other way, and this shows how far each
+    float32 form lies from the nearly exact one."""
+    from lshm_tpu_torch.kernels import conv_head as H
+
+    with torch.enable_grad():
+        ins = [t.detach().double().requires_grad_() for t in args[:5]]
+        y = H._head_f32(*ins, round_e0=True)
+        want = torch.autograd.grad(y, ins[1:], args[5].double())
+    return {k: max(rel_err(a.double(), b) for a, b in zip(got, want))
+            for k, got in (("kernel", gr), ("plain", gr_p))}
 
 
 def dx_plain_bf16(x, w0, b0, w1, b1, g1) -> torch.Tensor:

@@ -10,10 +10,11 @@
 // C is 4 or 8 (template), F0 = 8 and F1 = 12 (the ladder's first two widths).
 //
 // Storage type T (template) of x, the weights, the biases, g1 and the output (dx for
-// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  Everything inside is
-// float32: the window and the weights are widened in shared memory, so bf16 products
-// are exact and every sum is a float32 sum in the same (ky, kx, c) order as the float
-// kernel.  In bf16, as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
+// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  In K3 and K5 everything
+// inside is float32: the window and the weights are widened in shared memory, so bf16
+// products are exact and every sum is a float32 sum in the same (ky, kx, c) order as the
+// float kernel; bf16 K4 keeps them bf16 and sums on the tensor cores (below).  In bf16,
+// as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
 // (the TPU kernel stores it in x's dtype), stage 1 sums over the rounded e0, and the
 // output is rounded to bf16; K4 and K5 take elu' of the unrounded float a0, K4 sums dW1
 // over the rounded e0 and dW0 over x's bf16 values and returns float32 sums (the
@@ -36,10 +37,40 @@
 // and db1, back-propagates to the 18 x 18 stage-0 tile through w1, multiplies by
 // elu'(a0) (zero on the padding ring) and accumulates dW0 and db0.  Partitioning over
 // stage-1 outputs is exact: a block adds only its own outputs' share of each halo
-// position's gradient, so nothing is counted twice.  Each block keeps its sums in
-// shared memory (each entry owned by one thread) and writes one row of partials
-// [nblocks, 2068 for C = 4]; a second pass adds the rows in a fixed order, so two
-// runs are bit-identical.
+// position's gradient, so nothing is counted twice.  Each block writes one row of
+// partials [nblocks, 2068 for C = 4]; a second pass adds the rows in a fixed order, so
+// two runs are bit-identical.  float32 (head_bwd_kernel) runs on the CUDA cores: its
+// sums live in shared memory, each entry owned by one thread, and each is a serial dot
+// product over shared memory.
+//
+// Backward, weights, bfloat16 (tc::head_bwd_tc_kernel): the same tiles, grid and rows of
+// partials, with every per-tile sum a tensor-core product (mma.sync m16n8k16, bf16
+// operands through ldmatrix, float32 accumulators):
+//   stage 0  a0 = A0 [384 x 16C] W0, A0 the implicit im2col of the bf16 window: a row's
+//            16 (kx, c) values of one ky are 32 contiguous bytes, and since the window
+//            starts at image pixel 32 tx - 3 every row starts 16-byte aligned.  The 324
+//            halo positions go in four parity classes (py, px mod 2) of 81, each padded
+//            to 96 rows (6 m-tiles);
+//   stage 1  a1 = A1 [64 x 128] W1 [128 x 16] (F1 padded to 16), A1 e0's taps;
+//   dW1     += A1^T dpre1;
+//   d e0     per class m-tile, four tap slots: the rows of dpre1 at the stage-1 outputs
+//            that reach each position (a zero row where none does) times that tap's w1
+//            [16 x 8].  A gather with no atomics; the positions of an m-tile share their
+//            taps because they share their class.  dpre0 = d e0 * elu'(a0), with
+//            elu'(a0) kept in registers since stage 0 (the same warp, rows and class);
+//   dW0     += A0^T dpre0, K = the 384 class rows (the padding rows are zero).
+// x, the weights and e0 are exact bf16 operands.  dpre1 and dpre0 are float32 and go in
+// as three bf16 pieces, hi = bf16(v), mid = bf16(v - hi), lo = v - hi - mid (exact), one
+// product per piece into the same float32 sum: the sums keep float32 accuracy (TF32 or a
+// single bf16 rounding would not).  The window stays bf16 in shared memory (11.3 KB at
+// C = 4), and the next tile's loads with cp.async while this one computes (two buffers).
+// Each warp owns fixed m-tiles of dW0 (over its own positions) and of dW1 (taps 2w, 2w+1)
+// in registers across the whole loop; each product's partial starts from zero and is
+// added to them in float32, since the tensor cores' own accumulation truncates.  The
+// warps' dW0 and bias sums are added in a fixed order at the end.  The tensor cores sum
+// a0 in another order than the CUDA cores, so an e0 near a bf16 tie may round the other
+// way than in the plain version; chip_smoke.py shows the kernel as far from the float64
+// head as the plain float32 version is.
 //
 // Backward, input (K5), in two passes, each element a gather with no float atomics
 // (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
@@ -63,7 +94,11 @@
 // in a float32 sum), so both are bound by bytes; the input backward must move 120.4 MB
 // (x and dx 55.05 MB each, g1: 35.9 us) against 6.2 us of operations, bound by bytes,
 // and its two passes move 216.8 MB (x twice, the float32 dpre1 written and read).
-// These kernels use the CUDA cores.
+// K3, K5 and float32 K4 run on the CUDA cores, whose float32 arithmetic binds them.
+// bf16 K4 runs 928 tensor-core products a tile at C = 4 (with the pieces and the
+// padding 25.5 GFLOP, 26 us at 989 TFLOP/s) and moves its 65.4 MB once (19.5 us); what
+// is left on the CUDA cores binds it: three block-wide syncs a tile, the exps of
+// elu(a0), elu'(a0) and elu'(a1), the piece splits and the fragment addressing.
 
 #include "common.cuh"
 
@@ -336,6 +371,446 @@ head_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __re
   for (int i = tid; i < L::nacc; i += blockDim.x) out[i] = acc[i];
 }
 
+// ---- Backward, weights, bfloat16 (K4 bf16) on the tensor cores ----
+//
+// Every per-tile sum is an mma.sync m16n8k16 product (bf16 operands, float32
+// accumulators) fed by ldmatrix from shared memory; the header gives the design.
+// Fragment layouts (g = lane / 4, q = lane % 4): A [16 x 16] row-major, a0 = A[g][2q,
+// 2q+1], a1 = A[g+8][..], a2 = A[g][2q+8, 2q+9], a3 = A[g+8][2q+8, ..]; B [16 x 8],
+// b0 = B[2q, 2q+1][g], b1 = B[2q+8, 2q+9][g]; C [16 x 8], c0, c1 = C[g][2q, 2q+1],
+// c2, c3 = C[g+8][2q, 2q+1].
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = kThreads / 32;       // 8
+constexpr int kHalf = kT0 / 2;              // 9: a parity class's positions along an edge
+constexpr int kClassPos = kHalf * kHalf;    // 81 stage-0 positions of a parity class
+constexpr int kClassTiles = (kClassPos + 15) / 16;   // in 6 m-tiles (96 rows)
+constexpr int kMt0 = 4 * kClassTiles;       // 24 stage-0 m-tiles
+constexpr int kMtPerWarp = kMt0 / kWarps;   // 3
+constexpr int kP1 = kT1 * kT1;              // 64 stage-1 outputs of a tile
+constexpr int kDpRows = kP1 + 1;            // dpre1 rows of a piece, the last one zero
+constexpr int kF1P = 16;                    // F1 padded to two n-tiles
+constexpr int kPieces = 3;
+static_assert(kMt0 % kWarps == 0, "stage-0 m-tiles per warp");
+static_assert(kWarps == 2 * (kP1 / 16), "one stage-1 (m, n) tile per warp");
+static_assert(kWarps == 16 * kF0 / 16, "one dW1 m-tile per warp");
+
+template <int C>
+struct Smem {   // byte offsets; every array 16-byte aligned
+  static constexpr int win = kXW * kXW * C;                          // bf16, one buffer
+  static constexpr int oWin = 0;                                     // [2][38][38][C]
+  static constexpr int oE0 = oWin + 2 * 2 * win;                     // [324][8] bf16
+  static constexpr int oDp1 = oE0 + 2 * kT0 * kT0 * kF0;             // [3][65][16] bf16
+  static constexpr int oStg = oDp1 + 2 * kPieces * kDpRows * kF1P;   // [8][3][16][8] bf16
+  static constexpr int oW0f = oStg + 2 * kWarps * kPieces * 16 * kF0;   // [C][32] uint2
+  static constexpr int oW1f = oW0f + 8 * C * 32;                     // [2][8][32] uint2
+  static constexpr int oW1g = oW1f + 8 * 2 * 8 * 32;                 // [16][32] uint2
+  static constexpr int oBias = oW1g + 8 * 16 * 32;                   // b0 [8], b1 [16]
+  static constexpr int bytes = oBias + 4 * (kF0 + kF1P);
+  // the end-of-kernel sums reuse the windows: dW0 [8 warps][128 C], db0 and db1 [8][8]
+  static constexpr int red = kWarps * 16 * C * kF0 + 2 * kWarps * 8;
+  static_assert(4 * red <= 2 * 2 * win, "reduction scratch fits in the windows");
+  static_assert(oE0 % 16 == 0 && oDp1 % 16 == 0 && oStg % 16 == 0 && oW0f % 16 == 0,
+                "16-byte aligned rows for ldmatrix");
+};
+
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned addr, unsigned r[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// d += A B, A [16 x 16] and B [16 x 8] in bf16, d float32
+__device__ __forceinline__ void mma(float d[4], const unsigned a[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// kBytes from global to shared memory, asynchronously; src_bytes 0 writes zeros
+template <int kBytes>
+__device__ __forceinline__ void cp_async(unsigned dst, const void* src,
+                                         unsigned src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(kBytes), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ unsigned pack(bf16 lo, bf16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// v = p[0] + p[1] + p[2] exactly: p[0] = bf16(v), p[1] = bf16(v - p[0]), p[2] the rest
+// (a float32 significand is 24 bits, each piece carries 8 and the sign)
+__device__ __forceinline__ void split3(float v, float p[kPieces]) {
+  p[0] = lshm::round_to<bf16>(v);
+  const float r = v - p[0];
+  p[1] = lshm::round_to<bf16>(r);
+  p[2] = r - p[1];
+}
+
+// Stage-0 row r (0 .. 95) of parity class cls: tile position (py, px); false for the
+// padding rows (81 .. 95), which alias position (cls >> 1, cls & 1).
+__device__ __forceinline__ bool class_pos(int cls, int r, int& py, int& px) {
+  const bool valid = r < kClassPos;
+  const int qy = valid ? r / kHalf : 0, qx = valid ? r % kHalf : 0;
+  py = (cls >> 1) + 2 * qy;
+  px = (cls & 1) + 2 * qx;
+  return valid;
+}
+
+// Window of tile t into xw, asynchronously: image rows/cols [32 ty - 3, 32 ty + 35),
+// one pixel (2C bytes) a copy, zeros outside the image.
+template <int C>
+__device__ void load_window_async(const bf16* __restrict__ x, int P, Tile t, bf16* xw) {
+  const int iy0 = 32 * t.ty - 3, ix0 = 32 * t.tx - 3;
+  for (int i = threadIdx.x; i < kXW * kXW; i += blockDim.x) {
+    const int iy = iy0 + i / kXW, ix = ix0 + i % kXW;
+    const bool in = iy >= 0 && iy < P && ix >= 0 && ix < P;
+    const bf16* src = in ? x + (((size_t)t.n * P + iy) * P + ix) * C : x;
+    cp_async<2 * C>(saddr(xw + i * C), src, in ? 2 * C : 0);
+  }
+}
+
+// The B fragments of the three weight operands, once per block, in lane order:
+// w0f[s] stage 0 (k = (ky, kx, c) in [16 s, 16 s + 16), n = f0); w1f[nt][s] stage 1
+// (k = taps 2s, 2s + 1 by f0, n = f1 in [8 nt, 8 nt + 8)); w1g[tap] the d e0 gather
+// (k = f1, n = f0).  f1 >= 12 is 0.
+template <int C>
+__device__ void load_fragments(const bf16* __restrict__ w0, const bf16* __restrict__ b0,
+                               const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+                               uint2* w0f, uint2* w1f, uint2* w1g, float* b0s, float* b1s) {
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  auto W0 = [&](int k, int f0) {           // k = (ky * 4 + kx) * C + c
+    return w0[(f0 * C + k % C) * 16 + k / C];
+  };
+  auto W1 = [&](int f1, int f0, int tap) {
+    return f1 < kF1 ? w1[(f1 * kF0 + f0) * 16 + tap] : zero;
+  };
+  for (int i = threadIdx.x; i < (C + 16 + 16) * 32; i += blockDim.x) {
+    const int lane = i % 32, frag = i / 32, g = lane / 4, q = lane % 4;
+    if (frag < C) {
+      const int k = 16 * frag + 2 * q;
+      w0f[i] = make_uint2(pack(W0(k, g), W0(k + 1, g)),
+                          pack(W0(k + 8, g), W0(k + 9, g)));
+    } else if (frag < C + 16) {
+      const int nt = (frag - C) / 8, s = (frag - C) % 8, f1 = 8 * nt + g;
+      w1f[i - 32 * C] =
+          make_uint2(pack(W1(f1, 2 * q, 2 * s), W1(f1, 2 * q + 1, 2 * s)),
+                     pack(W1(f1, 2 * q, 2 * s + 1), W1(f1, 2 * q + 1, 2 * s + 1)));
+    } else {
+      const int tap = frag - C - 16;
+      w1g[i - 32 * (C + 16)] =
+          make_uint2(pack(W1(2 * q, g, tap), W1(2 * q + 1, g, tap)),
+                     pack(W1(2 * q + 8, g, tap), W1(2 * q + 9, g, tap)));
+    }
+  }
+  if (threadIdx.x < kF0) b0s[threadIdx.x] = lshm::to_f32(b0[threadIdx.x]);
+  if (threadIdx.x < kF1P)
+    b1s[threadIdx.x] = threadIdx.x < kF1 ? lshm::to_f32(b1[threadIdx.x]) : 0.0f;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+                   const bf16* __restrict__ b0, const bf16* __restrict__ w1,
+                   const bf16* __restrict__ b1, const bf16* __restrict__ g1, int P, int tps,
+                   int ntiles, float* __restrict__ partial) {
+  using S = Smem<C>;
+  using L = Layout<C>;
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
+  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
+  bf16* dp1 = reinterpret_cast<bf16*>(sm + S::oDp1);
+  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
+  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
+  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
+  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
+  float* b1s = b0s + kF0;
+  const int H0 = P / 2, H1 = P / 4;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  bf16* stg = reinterpret_cast<bf16*>(sm + S::oStg) + warp * kPieces * 16 * kF0;
+
+  if (blockIdx.x < ntiles) load_window_async<C>(x, P, decode_tile(blockIdx.x, tps), win);
+  cp_async_commit();
+  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
+  for (int i = tid; i < kPieces * kF1P; i += blockDim.x)      // the zero row of each piece
+    dp1[((i / kF1P) * kDpRows + kP1) * kF1P + i % kF1P] = __float2bfloat16_rn(0.0f);
+
+  float accW0[C][4] = {}, accW1[2][4] = {}, db0a[2] = {}, db1a[2] = {};
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile t = decode_tile(tile, tps);
+    const bf16* xw = win + buf * S::win;
+    cp_async_wait_all();
+    __syncthreads();                       // window t in; tile t - 1 done with e0, dp1
+    if (tile + (int)gridDim.x < ntiles)
+      load_window_async<C>(x, P, decode_tile(tile + gridDim.x, tps),
+                           win + (buf ^ 1) * S::win);
+    cp_async_commit();
+
+    // stage 0 on this warp's three class m-tiles: e0 to shared memory, elu'(a0) kept
+    float d0[kMtPerWarp][4];
+#pragma unroll
+    for (int j = 0; j < kMtPerWarp; ++j) {
+      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
+      int py, px;
+      class_pos(cls, r0 + lane % 16, py, px);
+      const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 16);
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < C; ++s) {        // k-step s: ky = 16 s / 4C
+        unsigned a[4];
+        ldsm_x4(arow + 2 * ((16 * s / (4 * C)) * kXW * C + (16 * s) % (4 * C)), a);
+        const uint2 b = w0f[s * 32 + lane];
+        float part[4] = {};                // each k-step alone, added rounding to nearest
+        mma(part, a, b.x, b.y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += part[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool valid = class_pos(cls, r0 + g + 8 * h, py, px);
+        const int y0 = 16 * t.ty - 1 + py, x0 = 16 * t.tx - 1 + px;
+        const bool in = valid && y0 >= 0 && y0 < H0 && x0 >= 0 && x0 < H0;
+        float e[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float a = acc[2 * h + c] + b0s[2 * q + c];
+          e[c] = in ? lshm::elu(a) : 0.0f;
+          d0[j][2 * h + c] = in ? lshm::elu_grad(a) : 0.0f;
+        }
+        if (valid)
+          *reinterpret_cast<unsigned*>(e0 + (py * kT0 + px) * kF0 + 2 * q) =
+              pack(e[0], e[1]);
+      }
+    }
+    __syncthreads();
+
+    // stage 1, warp = (m-tile of 16 outputs, n-tile of 8 channels): dpre1 in pieces
+    {
+      const int mt = warp / 2, nt = warp % 2;
+      float gv[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {        // g1 early: its latency hides behind the mma
+        const int p = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
+        const int oy = kT1 * t.ty + p / kT1, ox = kT1 * t.tx + p % kT1;
+        gv[h][0] = gv[h][1] = 0.0f;
+        if (oy < H1 && ox < H1 && f1 < kF1) {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              g1 + (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + f1);
+          gv[h][0] = __low2float(v);
+          gv[h][1] = __high2float(v);
+        }
+      }
+      const int p = 16 * mt + lane % 16;
+      const unsigned arow =
+          saddr(e0 + (2 * (p / kT1) * kT0 + 2 * (p % kT1)) * kF0);
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {        // k-step s: taps 2 s (k < 8) and 2 s + 1
+        const int tap = 2 * s + lane / 16;
+        unsigned a[4];
+        ldsm_x4(arow + 2 * ((tap / 4) * kT0 + tap % 4) * kF0, a);
+        const uint2 b = w1f[(nt * 8 + s) * 32 + lane];
+        mma(acc, a, b.x, b.y);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * mt + g + 8 * h;
+        float v[2], pc[2][kPieces];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          v[c] = gv[h][c] * lshm::elu_grad(acc[2 * h + c] + b1s[8 * nt + 2 * q + c]);
+          db1a[c] += v[c];
+          split3(v[c], pc[c]);
+        }
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k)
+          *reinterpret_cast<unsigned*>(dp1 + (k * kDpRows + row) * kF1P + 8 * nt +
+                                       2 * q) = pack(pc[0][k], pc[1][k]);
+      }
+    }
+    __syncthreads();
+
+    // dW1 += A1^T dpre1: this warp's m-tile is taps 2 warp, 2 warp + 1 (by f0)
+#pragma unroll
+    for (int s = 0; s < kP1 / 16; ++s) {
+      const int mq = lane / 8, p = 16 * s + lane % 8 + 8 * (mq / 2);
+      const int tap = 2 * warp + mq % 2;
+      unsigned a[4];
+      ldsm_x4_t(
+          saddr(e0 + ((2 * (p / kT1) + tap / 4) * kT0 + 2 * (p % kT1) + tap % 4) * kF0), a);
+      const int pb = 16 * s + lane % 8 + 8 * (mq % 2);
+      float part[2][4] = {};
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) {
+        unsigned b[4];
+        ldsm_x4_t(saddr(dp1 + (k * kDpRows + pb) * kF1P + 8 * (mq / 2)), b);
+        mma(part[0], a, b[0], b[1]);
+        mma(part[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) accW1[i / 4][i % 4] += part[i / 4][i % 4];
+    }
+
+    // d e0 gathered per class m-tile, dpre0 = d e0 * elu'(a0), then dW0 += A0^T dpre0
+#pragma unroll
+    for (int j = 0; j < kMtPerWarp; ++j) {
+      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
+      const int r = r0 + lane % 16;
+      const bool valid = r < kClassPos;
+      const int qy = r / kHalf, qx = r % kHalf;
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {        // slot s: ky = py % 2 + 2 (s / 2), kx likewise
+        const int oyl = qy - s / 2, oxl = qx - s % 2;
+        const int prow = valid && oyl >= 0 && oyl < kT1 && oxl >= 0 && oxl < kT1
+                             ? oyl * kT1 + oxl : kP1;
+        const int tap = ((cls >> 1) + 2 * (s / 2)) * 4 + (cls & 1) + 2 * (s % 2);
+        const uint2 b = w1g[tap * 32 + lane];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) {
+          unsigned a[4];
+          ldsm_x4(saddr(dp1 + (k * kDpRows + prow) * kF1P + 8 * (lane / 16)), a);
+          mma(acc, a, b.x, b.y);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float pc[2][kPieces];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = acc[2 * h + c] * d0[j][2 * h + c];   // 0 on ring and padding
+          db0a[c] += v;
+          split3(v, pc[c]);
+        }
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k)
+          *reinterpret_cast<unsigned*>(stg + (k * 16 + g + 8 * h) * kF0 + 2 * q) =
+              pack(pc[0][k], pc[1][k]);
+      }
+      __syncwarp();
+      // B: dpre0 [16 positions x 8 f0] per piece
+      unsigned b01[4], b2[2];
+      ldsm_x4_t(saddr(stg + (lane / 16) * 16 * kF0 + (lane % 16) * kF0), b01);
+      ldsm_x2_t(saddr(stg + 2 * 16 * kF0 + (lane % 16) * kF0), b2);
+      // A: the window rows of the m-tile's positions, transposed: m = (ky, kx, c)
+      int py, px;
+      class_pos(cls, r0 + lane % 8 + 8 * (lane / 16), py, px);
+      const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 8 % 2);
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {     // m-tile mm: k = (ky, kx, c) in [16 mm, +16)
+        unsigned a[4];
+        ldsm_x4_t(arow + 2 * ((16 * mm / (4 * C)) * kXW * C + (16 * mm) % (4 * C)), a);
+        float part[4] = {};
+        mma(part, a, b01[0], b01[1]);
+        mma(part, a, b01[2], b01[3]);
+        mma(part, a, b2[0], b2[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) accW0[mm][i] += part[i];
+      }
+      __syncwarp();                         // stg is rewritten by the next m-tile
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this block's row of partials [dW0 | db0 | dW1 | db1], summed over warps in order
+  float* out = partial + (size_t)blockIdx.x * L::nacc;
+  float* red = reinterpret_cast<float*>(sm + S::oWin);
+  float* rdb0 = red + kWarps * 16 * C * kF0;
+  float* rdb1 = rdb0 + kWarps * 8;
+#pragma unroll
+  for (int mm = 0; mm < C; ++mm) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 16 * mm + g + 8 * h, tap = k / C, c = k % C;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc)
+        red[warp * 16 * C * kF0 + ((2 * q + cc) * C + c) * 16 + tap] =
+            accW0[mm][2 * h + cc];
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {          // dW1: each entry owned by one thread
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int f1 = 8 * nt + 2 * q + cc, tap = 2 * warp + h;
+        if (f1 < kF1) out[L::oW1 + (f1 * kF0 + g) * 16 + tap] = accW1[nt][2 * h + cc];
+      }
+    }
+  }
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {          // over g: lanes q, q + 4, ..., q + 28
+    float s0 = db0a[cc], s1 = db1a[cc];
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    if (g == 0) {
+      rdb0[warp * 8 + 2 * q + cc] = s0;
+      rdb1[warp * 8 + 2 * q + cc] = s1;    // channel 8 (warp % 2) + 2 q + cc
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 16 * C * kF0; i += blockDim.x) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red[w * 16 * C * kF0 + i];
+    out[L::oW0 + i] = s;
+  }
+  if (tid < kF0) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += rdb0[w * 8 + tid];
+    out[L::oB0 + tid] = s;
+  } else if (tid >= 32 && tid < 32 + kF1) {
+    const int f1 = tid - 32;
+    float s = 0.0f;
+    for (int w = f1 / 8; w < kWarps; w += 2) s += rdb1[w * 8 + f1 % 8];
+    out[L::oB1 + f1] = s;
+  }
+}
+
+}  // namespace tc
+
 // Second pass of the input backward: one block per 32 x 32 input tile (tile (ty, tx)
 // covers the inputs of stage-1 tile (ty, tx)).  Halo coordinates: stage-0 position
 // py <-> row 16 ty - 1 + py, dpre1 position qy <-> row 8 ty - 1 + qy.
@@ -429,17 +904,27 @@ int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T*
   return (int)cudaGetLastError();
 }
 
+// float32: head_bwd_kernel on the CUDA cores; bfloat16: tc::head_bwd_tc_kernel on the
+// tensor cores.  Both write one row of partials per block, added in a fixed order.
 template <typename T, int C>
 int bwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1, int B,
         int P, float* partial, float* grads, cudaStream_t stream) {
   using L = Layout<C>;
-  cudaError_t err = lshm::allow_smem(head_bwd_kernel<T, C>, L::bwd_bytes);
-  if (err != cudaSuccess) return (int)err;
   const int tps = tiles_per_side(P);
   const int ntiles = B * tps * tps;
   const int nblk = ntiles < kBwdBlocks ? ntiles : kBwdBlocks;
-  head_bwd_kernel<T, C><<<nblk, kThreads, L::bwd_bytes, stream>>>(x, w0, b0, w1, b1, g1, P,
+  if constexpr (std::is_same<T, float>::value) {
+    cudaError_t err = lshm::allow_smem(head_bwd_kernel<T, C>, L::bwd_bytes);
+    if (err != cudaSuccess) return (int)err;
+    head_bwd_kernel<T, C><<<nblk, kThreads, L::bwd_bytes, stream>>>(x, w0, b0, w1, b1, g1,
+                                                                   P, tps, ntiles, partial);
+  } else {
+    constexpr int bytes = tc::Smem<C>::bytes;
+    cudaError_t err = lshm::allow_smem(tc::head_bwd_tc_kernel<C>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    tc::head_bwd_tc_kernel<C><<<nblk, kThreads, bytes, stream>>>(x, w0, b0, w1, b1, g1, P,
                                                                  tps, ntiles, partial);
+  }
   lshm::launch_reduce_partials(partial, nblk, L::nacc, 1.0f, grads, stream);
   return (int)cudaGetLastError();
 }
