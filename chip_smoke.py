@@ -13,9 +13,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 after warm-up, tools/measure.py) of kernel, plain version and library
                 yardstick; then K3, K4 and K5 in bfloat16 the same way (K3's output
                 4e-3, K5's dx one bf16 ulp of the largest value, each with the share of
-                elements that differ at all; K4's float32 sums before the cast 1e-4, at
-                C = 4 and at C = 8 (B = 16); bit-identical repeats; yardsticks in bf16,
-                channels-last)
+                elements that differ at all; K4's float32 sums before the cast 1e-4; K4
+                and K5 at C = 4 and at C = 8 (B = 16), each also with its plain
+                version's distance from the head in float64; bit-identical repeats;
+                yardsticks in bf16, channels-last)
   4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
                 synthetic extract held in memory, with every kernel's launch count
@@ -271,23 +272,26 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     dx = H.head_input_grad(*args, g1b)
     dx_p = dx_plain_bf16(*args, g1b)
     dx2 = H.head_input_grad(*args, g1b)
-    c8 = head_bwd_bf16_c8(x.device)
+    c8 = head_bf16_c8(x.device)
+    f64 = grads_f64((*args, g1b))
     torch.cuda.synchronize()
     row = {"phase": "parity", "kernel": "conv_head_bf16", "x": list(xb.shape),
            "fwd_rel_err": rel_err(y.float(), y_p.float()),
            "fwd_differing_share": float((y != y_p).float().mean()),
            "bwd_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
            "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
-           "bwd_rel_err_vs_f64": vs_f64(gr, gr_p, (*args, g1b)),
+           "bwd_rel_err_vs_f64": vs_f64({"kernel": gr, "plain": gr_p}, f64[1:]),
            "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
-           **c8, **dx_agreement(dx, dx_p, dx2)}
+           **c8, **dx_agreement(dx, dx_p, dx2),
+           "dx_vs_f64": vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1])}
     emit(row)
     # K3 bf16 rounds where its plain version rounds, and on the H100 no element of the
     # two differs: a kernel that drops or moves the rounding of e0 fails here
     if (row["fwd_rel_err"] > 4e-3 or row["fwd_differing_share"] != 0.0
             or row["bwd_rel_err"] > 1e-4 or not row["bwd_bit_identical"]
             or row["bwd_c8_rel_err"] > 1e-4 or not row["bwd_c8_bit_identical"]
-            or not row["dx_within_one_ulp"] or not row["dx_bit_identical"]):
+            or not row["dx_within_one_ulp"] or not row["dx_bit_identical"]
+            or not row["dx_c8_within_one_ulp"] or not row["dx_c8_bit_identical"]):
         raise AssertionError(f"bf16 conv-head kernels disagree with their plain versions: "
                              f"{row}")
 
@@ -336,6 +340,7 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
              bound_ms=b4[0], bound_by=b4[1], library_ms=time_ms(cudnn_bwd)),
         dict(name="K5 head_dx (bf16)", route="cuda", source=src, replaces=f"{tpu}:404",
              counter="head_dx_bf16", path="head_input_grad",
+             arch="mma.sync m16n8k16 bf16, 3-piece split; two passes",
              max_abs_err=abs_err(dx.float(), dx_p.float()),
              ms=time_ms(lambda: H.head_input_grad(*args, g1b)),
              plain_ms=time_ms(lambda: dx_plain_bf16(*args, g1b)),
@@ -344,9 +349,10 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     ]
 
 
-def head_bwd_bf16_c8(dev) -> dict:
-    """K4 bf16 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the tensor-core
-    products) against its plain version, and two calls bit for bit."""
+def head_bf16_c8(dev) -> dict:
+    """K4 and K5 bf16 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the
+    tensor-core stage-0 products, and dx fills the whole n-tile) against their plain
+    versions, and two calls of each bit for bit."""
     from lshm_tpu_torch.kernels import conv_head as H
 
     B, P, C = 16, 128, 8
@@ -357,24 +363,32 @@ def head_bwd_bf16_c8(dev) -> dict:
     args = [t.to(dev, torch.bfloat16) for t in args]
     gr, gr2 = H.head_weight_grads(*args), H.head_weight_grads(*args)
     gr_p = H.head_grads_plain(*args)
+    dx, dx2, dx_p = H.head_input_grad(*args), H.head_input_grad(*args), dx_plain_bf16(*args)
+    dx_row = dx_agreement(dx, dx_p, dx2)
+    f64 = grads_f64(args)
     return {"bwd_c8_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
-            "bwd_c8_rel_err_vs_f64": vs_f64(gr, gr_p, args),
-            "bwd_c8_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+            "bwd_c8_rel_err_vs_f64": vs_f64({"kernel": gr, "plain": gr_p}, f64[1:]),
+            "bwd_c8_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
+            **{k.replace("dx_", "dx_c8_"): v for k, v in dx_row.items()},
+            "dx_c8_vs_f64": vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1])}
 
 
-def vs_f64(gr, gr_p, args) -> dict:
-    """K4 bf16's float32 sums (kernel and plain version) against the plain version with
-    its convolutions in float64 and e0 still rounded to bf16: a0 summed in another
-    order can round an e0 near a bf16 tie the other way, and this shows how far each
-    float32 form lies from the nearly exact one."""
+def grads_f64(args) -> tuple:
+    """dx, dW0, db0, dW1, db1 of the plain head with its convolutions in float64 and e0
+    still rounded to bf16.  A kernel that sums a0 in another order can round an e0 near
+    a bf16 tie the other way; these show how far it and its plain version each lie from
+    the nearly exact result."""
     from lshm_tpu_torch.kernels import conv_head as H
 
     with torch.enable_grad():
         ins = [t.detach().double().requires_grad_() for t in args[:5]]
-        y = H._head_f32(*ins, round_e0=True)
-        want = torch.autograd.grad(y, ins[1:], args[5].double())
+        return torch.autograd.grad(H._head_f32(*ins, round_e0=True), ins, args[5].double())
+
+
+def vs_f64(forms: dict, want) -> dict:
+    """Each form's largest relative distance, over its tensors, from ``want``."""
     return {k: max(rel_err(a.double(), b) for a, b in zip(got, want))
-            for k, got in (("kernel", gr), ("plain", gr_p))}
+            for k, got in forms.items()}
 
 
 def dx_plain_bf16(x, w0, b0, w1, b1, g1) -> torch.Tensor:

@@ -10,10 +10,10 @@
 // C is 4 or 8 (template), F0 = 8 and F1 = 12 (the ladder's first two widths).
 //
 // Storage type T (template) of x, the weights, the biases, g1 and the output (dx for
-// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  In K3 and K5 everything
-// inside is float32: the window and the weights are widened in shared memory, so bf16
-// products are exact and every sum is a float32 sum in the same (ky, kx, c) order as the
-// float kernel; bf16 K4 keeps them bf16 and sums on the tensor cores (below).  In bf16,
+// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  In K3 everything inside
+// is float32: the window and the weights are widened in shared memory, so bf16 products
+// are exact and every sum is a float32 sum in the same (ky, kx, c) order as the float
+// kernel; bf16 K4 and K5 keep them bf16 and sum on the tensor cores (below).  In bf16,
 // as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
 // (the TPU kernel stores it in x's dtype), stage 1 sums over the rounded e0, and the
 // output is rounded to bf16; K4 and K5 take elu' of the unrounded float a0, K4 sums dW1
@@ -76,12 +76,35 @@
 // (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
 // two runs are bit-identical:
 //   1. dpre1 = g1 * elu'(a1) [B, P/4, P/4, F1] to device memory, float32 in either
-//      storage type (20.6 MB at B = 420): the forward kernel with another epilogue.
-//   2. One block per 32 x 32 input tile.  Its inputs reach stage-0 positions of the
-//      same 18 x 18 halo tile as the forward's, which reach a 10 x 10 tile of dpre1.
-//      The block stages the 38 x 38 window, recomputes elu'(a0) on the halo tile,
-//      gathers dpre0 = elu'(a0) * conv1^T(dpre1) there (zero on the padding ring) and
-//      gathers dx = conv0^T(dpre0) for its 32 x 32 x C inputs.
+//      storage type (20.6 MB at B = 420).  float32: the forward kernel with another
+//      epilogue (head_fwd_kernel<float, C, true>).
+//   2. Per 32 x 32 input tile.  Its inputs reach stage-0 positions of the same
+//      18 x 18 halo tile as the forward's, which reach a 10 x 10 tile of dpre1.
+//      float32 (head_dx_kernel, one block per tile, CUDA cores): the block stages the
+//      38 x 38 window, recomputes elu'(a0) on the halo tile, gathers dpre0 = elu'(a0) *
+//      conv1^T(dpre1) there (zero on the padding ring) and gathers dx = conv0^T(dpre0)
+//      for its 32 x 32 x C inputs.
+//
+// Backward, input, bfloat16 (tc::dpre1_tc_kernel, tc::head_dx_tc_kernel): both passes
+// on the tensor cores, each a fixed grid walking the tiles with the next tile's loads
+// in flight (cp.async, two buffers).
+//   1. K4 bf16's stage 0 (e0 only) and stage 1 (the same device functions), storing
+//      dpre1 in float32.
+//   2. Per 32 x 32 input tile: the bf16 window and dpre1's 10 x 10 halo (zeros outside
+//      the image) arrive by cp.async; the halo goes to shared memory as three exact
+//      bf16 pieces, F1 padded to 16.  Stage 0 runs in K4's class order, elu'(a0) kept
+//      in registers (0 on the ring).  d e0 is K4's gather per class m-tile, four tap
+//      slots x 3 pieces, except that a position (cls_y + 2 qy, cls_x + 2 qx) takes
+//      halo row (qy + 1 - s / 2, qx + 1 - s % 2), always inside the halo.  dpre0 = d e0
+//      * elu'(a0) goes in three pieces to shared memory for all 324 positions
+//      ([3][324][8] bf16), since dx needs positions across classes.  dx is a product
+//      too: the 32 x 32 pixels go in four parity classes (ry, rx mod 2) of 16 x 16,
+//      one m-tile per class row; every pixel of a class takes the same four taps, ky =
+//      1 - ry % 2 + 2 ty at stage-0 row ry / 2 + 1 + ry % 2 - ty, and likewise in x, so
+//      the A rows are dpre0 rows picked by address.  A k-step pairs two taps (K = 2 x
+//      8 f0), B is w0 for that pair [16 x C padded to 8]: 2 k-steps x 3 pieces per
+//      m-tile, each product from zero and added in float32, the sum rounded once to
+//      bf16 and staged so that whole pixels leave in 16-byte stores.
 //
 // Bound on the H100 at the main path's shapes (B=420, P=128, C=4), float32: the
 // forward reads 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP
@@ -93,12 +116,16 @@
 // take 3.1 and 7.6 us on the bf16 tensor cores (989 TFLOP/s; bf16 products are exact
 // in a float32 sum), so both are bound by bytes; the input backward must move 120.4 MB
 // (x and dx 55.05 MB each, g1: 35.9 us) against 6.2 us of operations, bound by bytes,
-// and its two passes move 216.8 MB (x twice, the float32 dpre1 written and read).
-// K3, K5 and float32 K4 run on the CUDA cores, whose float32 arithmetic binds them.
-// bf16 K4 runs 928 tensor-core products a tile at C = 4 (with the pieces and the
+// and its two passes move 216.8 MB (x twice, the float32 dpre1 written and read; 65 us).
+// K3, float32 K4 and float32 K5 run on the CUDA cores, whose float32 arithmetic binds
+// them.  bf16 K4 runs 928 tensor-core products a tile at C = 4 (with the pieces and the
 // padding 25.5 GFLOP, 26 us at 989 TFLOP/s) and moves its 65.4 MB once (19.5 us); what
 // is left on the CUDA cores binds it: three block-wide syncs a tile, the exps of
-// elu(a0), elu'(a0) and elu'(a1), the piece splits and the fragment addressing.
+// elu(a0), elu'(a0) and elu'(a1), the piece splits and the fragment addressing.  bf16
+// K5 runs 928 products a tile too (pass 1 160, pass 2 768: 25.5 GFLOP, 26 us) and is
+// bound the same way: six block-wide syncs a tile over both passes, 5,952 exps, 3,792
+// float32 values split into pieces, with 16 to 24 warps per SM to hide the ldmatrix ->
+// mma chains.
 
 #include "common.cuh"
 
@@ -542,6 +569,98 @@ __device__ void load_fragments(const bf16* __restrict__ w0, const bf16* __restri
     b1s[threadIdx.x] = threadIdx.x < kF1 ? lshm::to_f32(b1[threadIdx.x]) : 0.0f;
 }
 
+// Stage 0 of tile t on this warp's three class m-tiles, from the bf16 window xw: with
+// kE0, e0 = elu(a0) rounded to bf16 (0 on conv1's padding ring) into e0 at its tile
+// position; with kD0, elu'(a0) of the unrounded a0 (0 on the ring and on the padding
+// rows) into d0, in the accumulator layout (rows r0 + g, r0 + g + 8; f0 2q, 2q + 1).
+template <int C, bool kE0, bool kD0>
+__device__ __forceinline__ void stage0_tc(const bf16* xw, const uint2* w0f, const float* b0s,
+                                          int H0, Tile t, bf16* e0,
+                                          float d0[kMtPerWarp][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kMtPerWarp; ++j) {
+    const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
+    int py, px;
+    class_pos(cls, r0 + lane % 16, py, px);
+    const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 16);
+    float acc[4] = {};
+#pragma unroll
+    for (int s = 0; s < C; ++s) {        // k-step s: ky = 16 s / 4C
+      unsigned a[4];
+      ldsm_x4(arow + 2 * ((16 * s / (4 * C)) * kXW * C + (16 * s) % (4 * C)), a);
+      const uint2 b = w0f[s * 32 + lane];
+      float part[4] = {};                // each k-step alone, added rounding to nearest
+      mma(part, a, b.x, b.y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] += part[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool valid = class_pos(cls, r0 + g + 8 * h, py, px);
+      const int y0 = 16 * t.ty - 1 + py, x0 = 16 * t.tx - 1 + px;
+      const bool in = valid && y0 >= 0 && y0 < H0 && x0 >= 0 && x0 < H0;
+      float e[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float a = acc[2 * h + c] + b0s[2 * q + c];
+        if constexpr (kE0) e[c] = in ? lshm::elu(a) : 0.0f;
+        if constexpr (kD0) d0[j][2 * h + c] = in ? lshm::elu_grad(a) : 0.0f;
+      }
+      if constexpr (kE0) {
+        if (valid)
+          *reinterpret_cast<unsigned*>(e0 + (py * kT0 + px) * kF0 + 2 * q) =
+              pack(e[0], e[1]);
+      }
+    }
+  }
+}
+
+// Whether stage-1 output row (0 .. 63) of tile t, channel f1, lies inside the image
+// and F1; and its index in a [B, H1, H1, F1] tensor.
+__device__ __forceinline__ bool in1(Tile t, int H1, int row, int f1) {
+  const int oy = kT1 * t.ty + row / kT1, ox = kT1 * t.tx + row % kT1;
+  return oy < H1 && ox < H1 && f1 < kF1;
+}
+
+__device__ __forceinline__ size_t out1(Tile t, int H1, int row, int f1) {
+  const int oy = kT1 * t.ty + row / kT1, ox = kT1 * t.tx + row % kT1;
+  return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + f1;
+}
+
+// Stage 1 of tile t, warp = (m-tile of 16 outputs, n-tile of 8 channels): a1 without
+// b1 into acc (rows 16 mt + g, + 8; f1 8 nt + 2q, + 1), and g1 at the same places
+// into gv (0 where in1 is false).
+__device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f,
+                                          const bf16* __restrict__ g1, int H1, Tile t,
+                                          float acc[4], float gv[2][2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int mt = warp / 2, nt = warp % 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {          // g1 early: its latency hides behind the mma
+    const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
+    gv[h][0] = gv[h][1] = 0.0f;
+    if (in1(t, H1, row, f1)) {
+      const __nv_bfloat162 v =
+          *reinterpret_cast<const __nv_bfloat162*>(g1 + out1(t, H1, row, f1));
+      gv[h][0] = __low2float(v);
+      gv[h][1] = __high2float(v);
+    }
+  }
+  const int p = 16 * mt + lane % 16;
+  const unsigned arow = saddr(e0 + (2 * (p / kT1) * kT0 + 2 * (p % kT1)) * kF0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {          // k-step s: taps 2 s (k < 8) and 2 s + 1
+    const int tap = 2 * s + lane / 16;
+    unsigned a[4];
+    ldsm_x4(arow + 2 * ((tap / 4) * kT0 + tap % 4) * kF0, a);
+    const uint2 b = w1f[(nt * 8 + s) * 32 + lane];
+    mma(acc, a, b.x, b.y);
+  }
+}
+
 template <int C>
 __global__ void __launch_bounds__(kThreads, 2)
 head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
@@ -586,70 +705,14 @@ head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 
     // stage 0 on this warp's three class m-tiles: e0 to shared memory, elu'(a0) kept
     float d0[kMtPerWarp][4];
-#pragma unroll
-    for (int j = 0; j < kMtPerWarp; ++j) {
-      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
-      int py, px;
-      class_pos(cls, r0 + lane % 16, py, px);
-      const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 16);
-      float acc[4] = {};
-#pragma unroll
-      for (int s = 0; s < C; ++s) {        // k-step s: ky = 16 s / 4C
-        unsigned a[4];
-        ldsm_x4(arow + 2 * ((16 * s / (4 * C)) * kXW * C + (16 * s) % (4 * C)), a);
-        const uint2 b = w0f[s * 32 + lane];
-        float part[4] = {};                // each k-step alone, added rounding to nearest
-        mma(part, a, b.x, b.y);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] += part[i];
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const bool valid = class_pos(cls, r0 + g + 8 * h, py, px);
-        const int y0 = 16 * t.ty - 1 + py, x0 = 16 * t.tx - 1 + px;
-        const bool in = valid && y0 >= 0 && y0 < H0 && x0 >= 0 && x0 < H0;
-        float e[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float a = acc[2 * h + c] + b0s[2 * q + c];
-          e[c] = in ? lshm::elu(a) : 0.0f;
-          d0[j][2 * h + c] = in ? lshm::elu_grad(a) : 0.0f;
-        }
-        if (valid)
-          *reinterpret_cast<unsigned*>(e0 + (py * kT0 + px) * kF0 + 2 * q) =
-              pack(e[0], e[1]);
-      }
-    }
+    stage0_tc<C, true, true>(xw, w0f, b0s, H0, t, e0, d0);
     __syncthreads();
 
     // stage 1, warp = (m-tile of 16 outputs, n-tile of 8 channels): dpre1 in pieces
     {
       const int mt = warp / 2, nt = warp % 2;
-      float gv[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {        // g1 early: its latency hides behind the mma
-        const int p = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
-        const int oy = kT1 * t.ty + p / kT1, ox = kT1 * t.tx + p % kT1;
-        gv[h][0] = gv[h][1] = 0.0f;
-        if (oy < H1 && ox < H1 && f1 < kF1) {
-          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-              g1 + (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + f1);
-          gv[h][0] = __low2float(v);
-          gv[h][1] = __high2float(v);
-        }
-      }
-      const int p = 16 * mt + lane % 16;
-      const unsigned arow =
-          saddr(e0 + (2 * (p / kT1) * kT0 + 2 * (p % kT1)) * kF0);
-      float acc[4] = {};
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {        // k-step s: taps 2 s (k < 8) and 2 s + 1
-        const int tap = 2 * s + lane / 16;
-        unsigned a[4];
-        ldsm_x4(arow + 2 * ((tap / 4) * kT0 + tap % 4) * kF0, a);
-        const uint2 b = w1f[(nt * 8 + s) * 32 + lane];
-        mma(acc, a, b.x, b.y);
-      }
+      float acc[4], gv[2][2];
+      stage1_tc(e0, w1f, g1, H1, t, acc, gv);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = 16 * mt + g + 8 * h;
@@ -809,6 +872,278 @@ head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   }
 }
 
+// ---- Backward, input, bfloat16 (K5 bf16) on the tensor cores, in two passes ----
+
+// resident blocks per SM of each pass: pass 1 fits three (72 registers at C = 4), pass 2
+// two (125; three blocks of 256 threads would cap it at 80 and force spills); the grids
+// hold that many on the H100's SMs
+constexpr int kSMs = 132;
+constexpr int kDpre1PerSM = 3, kDxPerSM = 2;
+
+// Pass 1: dpre1 = g1 * elu'(a1) in float32 to device memory; K4 bf16's tiles and their
+// order, shared-memory layout (its dp1 and stg unused), double-buffered window, stage 0
+// (e0 only) and stage 1.
+template <int C>
+__global__ void __launch_bounds__(kThreads, kDpre1PerSM)
+dpre1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+                const bf16* __restrict__ b0, const bf16* __restrict__ w1,
+                const bf16* __restrict__ b1, const bf16* __restrict__ g1, int P, int tps,
+                int ntiles, float* __restrict__ dpre1) {
+  using S = Smem<C>;
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
+  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
+  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
+  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
+  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
+  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
+  float* b1s = b0s + kF0;
+  const int H0 = P / 2, H1 = P / 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int mt = warp / 2, nt = warp % 2;
+
+  if (blockIdx.x < ntiles) load_window_async<C>(x, P, decode_tile(blockIdx.x, tps), win);
+  cp_async_commit();
+  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile t = decode_tile(tile, tps);
+    cp_async_wait_all();
+    __syncthreads();                       // window t in; tile t - 1 done with e0
+    if (tile + (int)gridDim.x < ntiles)
+      load_window_async<C>(x, P, decode_tile(tile + gridDim.x, tps),
+                           win + (buf ^ 1) * S::win);
+    cp_async_commit();
+    stage0_tc<C, true, false>(win + buf * S::win, w0f, b0s, H0, t, e0, nullptr);
+    __syncthreads();
+    float acc[4], gv[2][2];
+    stage1_tc(e0, w1f, g1, H1, t, acc, gv);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
+      if (in1(t, H1, row, f1))
+        *reinterpret_cast<float2*>(dpre1 + out1(t, H1, row, f1)) =
+            make_float2(gv[h][0] * lshm::elu_grad(acc[2 * h] + b1s[f1]),
+                        gv[h][1] * lshm::elu_grad(acc[2 * h + 1] + b1s[f1 + 1]));
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Pass 2: one 32 x 32 input tile at a time (the inputs of stage-1 tile (ty, tx)); its
+// stage-0 halo tile is K4's 18 x 18, and the dpre1 that reaches it a 10 x 10 halo
+// (halo position qy <-> stage-1 row 8 ty - 1 + qy).
+constexpr int kHalo = kTD * kTD;           // 100 dpre1 positions
+constexpr int kPos0 = kT0 * kT0;           // 324 stage-0 positions
+constexpr int kDxTiles = 4 * (kTX / 2);    // 64 dx m-tiles: 4 parity classes x 16 rows
+static_assert(kDxTiles % kWarps == 0, "dx m-tiles per warp");
+
+template <int C>
+struct DxSmem {   // byte offsets; every array 16-byte aligned
+  static constexpr int win = kXW * kXW * C;                       // bf16, one buffer
+  static constexpr int oWin = 0;                                  // [2][38][38][C]
+  static constexpr int oRaw = oWin + 2 * 2 * win;                 // [2][100][12] float
+  static constexpr int oDp1 = oRaw + 2 * 4 * kHalo * kF1;         // [3][100][16] bf16
+  static constexpr int oDp0 = oDp1 + 2 * kPieces * kHalo * kF1P;  // [3][324][8] bf16
+  static constexpr int oDx = oDp0 + 2 * kPieces * kPos0 * kF0;    // [32][32][C] bf16
+  static constexpr int oW0f = oDx + 2 * kTX * kTX * C;            // [C][32] uint2
+  static constexpr int oW1g = oW0f + 8 * C * 32;                  // [16][32] uint2
+  static constexpr int oW0x = oW1g + 8 * 16 * 32;                 // [4][2][32] uint2
+  static constexpr int oBias = oW0x + 8 * 8 * 32;                 // b0 [8], b1 [16]
+  static constexpr int bytes = oBias + 4 * (kF0 + kF1P);
+  static_assert(oRaw % 16 == 0 && oDp1 % 16 == 0 && oDp0 % 16 == 0 && oDx % 16 == 0 &&
+                oW0f % 16 == 0, "16-byte aligned rows for cp.async and ldmatrix");
+  static_assert(2 * kPieces * kPos0 * kF0 >= 8 * 2 * 8 * 32, "stage 1's fragments in dp0");
+};
+
+// dpre1's 10 x 10 halo of tile t into raw [100][12], asynchronously: 16 bytes a copy,
+// zeros outside the image.
+__device__ void load_dpre1_async(const float* __restrict__ dpre1, int H1, Tile t,
+                                 float* raw) {
+  for (int i = threadIdx.x; i < kHalo * 3; i += blockDim.x) {
+    const int pos = i / 3, k = i % 3;
+    const int oy = kT1 * t.ty - 1 + pos / kTD, ox = kT1 * t.tx - 1 + pos % kTD;
+    const bool in = oy >= 0 && oy < H1 && ox >= 0 && ox < H1;
+    const float* src = in ? dpre1 + (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + 4 * k
+                          : dpre1;
+    cp_async<16>(saddr(raw + pos * kF1 + 4 * k), src, in ? 16 : 0);
+  }
+}
+
+// B fragments of the dx product, in lane order: w0x[cls][s] for parity class cls =
+// (ry % 2, rx % 2) and k-step s: k = (tap (s, 0) by f0 | tap (s, 1) by f0), n = c,
+// where tap (ty, tx) is ky = 1 - ry % 2 + 2 ty, kx = 1 - rx % 2 + 2 tx; c >= C is 0.
+template <int C>
+__device__ void load_dx_fragments(const bf16* __restrict__ w0, uint2* w0x) {
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  auto W0 = [&](int f0, int c, int ky, int kx) {
+    return c < C ? w0[((f0 * C + c) * 4 + ky) * 4 + kx] : zero;
+  };
+  for (int i = threadIdx.x; i < 8 * 32; i += blockDim.x) {
+    const int lane = i % 32, cls = i / 64, s = (i / 32) % 2, g = lane / 4, q = lane % 4;
+    const int ky = 1 - (cls >> 1) + 2 * s, kx0 = 1 - (cls & 1), kx1 = kx0 + 2;
+    w0x[i] = make_uint2(pack(W0(2 * q, g, ky, kx0), W0(2 * q + 1, g, ky, kx0)),
+                        pack(W0(2 * q, g, ky, kx1), W0(2 * q + 1, g, ky, kx1)));
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, kDxPerSM)
+head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+                  const bf16* __restrict__ b0, const bf16* __restrict__ w1,
+                  const bf16* __restrict__ b1, const float* __restrict__ dpre1, int P,
+                  int tps, int ntiles, bf16* __restrict__ dx) {
+  using S = DxSmem<C>;
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
+  float* raw = reinterpret_cast<float*>(sm + S::oRaw);
+  bf16* dp1 = reinterpret_cast<bf16*>(sm + S::oDp1);
+  bf16* dp0 = reinterpret_cast<bf16*>(sm + S::oDp0);
+  bf16* dxs = reinterpret_cast<bf16*>(sm + S::oDx);
+  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
+  // load_fragments also writes stage 1's fragments, which this kernel never reads:
+  // they go to dp0's space, which the first tile writes only after a block-wide sync
+  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oDp0);
+  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
+  uint2* w0x = reinterpret_cast<uint2*>(sm + S::oW0x);
+  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
+  float* b1s = b0s + kF0;
+  const int H0 = P / 2, H1 = P / 4;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+
+  if (blockIdx.x < ntiles) {
+    const Tile t = decode_tile(blockIdx.x, tps);
+    load_window_async<C>(x, P, t, win);
+    load_dpre1_async(dpre1, H1, t, raw);
+  }
+  cp_async_commit();
+  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
+  load_dx_fragments<C>(w0, w0x);
+  for (int i = tid; i < kPieces * kHalo; i += blockDim.x)    // f1 12 .. 15 of dp1 stay 0
+    *reinterpret_cast<uint2*>(dp1 + i * kF1P + kF1) = make_uint2(0u, 0u);
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile t = decode_tile(tile, tps);
+    const float* rawt = raw + buf * kHalo * kF1;
+    cp_async_wait_all();
+    __syncthreads();                       // tile t in; tile t - 1 done with dp0, dxs
+    if (tile + (int)gridDim.x < ntiles) {
+      const Tile tn = decode_tile(tile + gridDim.x, tps);
+      load_window_async<C>(x, P, tn, win + (buf ^ 1) * S::win);
+      load_dpre1_async(dpre1, H1, tn, raw + (buf ^ 1) * kHalo * kF1);
+    }
+    cp_async_commit();
+
+    // the dpre1 halo in three exact bf16 pieces, four channels a thread
+    for (int i = tid; i < kHalo * 3; i += blockDim.x) {
+      const int pos = i / 3, f1 = 4 * (i % 3);
+      const float4 v = *reinterpret_cast<const float4*>(rawt + pos * kF1 + f1);
+      float pc[4][kPieces];
+      split3(v.x, pc[0]);
+      split3(v.y, pc[1]);
+      split3(v.z, pc[2]);
+      split3(v.w, pc[3]);
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k)
+        *reinterpret_cast<uint2*>(dp1 + (k * kHalo + pos) * kF1P + f1) =
+            make_uint2(pack(pc[0][k], pc[1][k]), pack(pc[2][k], pc[3][k]));
+    }
+    // stage 0 on this warp's three class m-tiles: elu'(a0) kept
+    float d0[kMtPerWarp][4];
+    stage0_tc<C, false, true>(win + buf * S::win, w0f, b0s, H0, t, nullptr, d0);
+    __syncthreads();
+
+    // d e0 per class m-tile: four tap slots, the A rows dpre1 halo rows picked by
+    // address; dpre0 = d e0 * elu'(a0) in three pieces at its tile position
+#pragma unroll
+    for (int j = 0; j < kMtPerWarp; ++j) {
+      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
+      const int r = r0 + lane % 16;
+      const bool valid = r < kClassPos;    // padding rows: position (0, 0)'s rows, d0 0
+      const int qy = valid ? r / kHalf : 0, qx = valid ? r % kHalf : 0;
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {        // slot s: ky = py % 2 + 2 (s / 2), kx likewise
+        const int hrow = (qy + 1 - s / 2) * kTD + qx + 1 - s % 2;
+        const int tap = ((cls >> 1) + 2 * (s / 2)) * 4 + (cls & 1) + 2 * (s % 2);
+        const uint2 b = w1g[tap * 32 + lane];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) {
+          unsigned a[4];
+          ldsm_x4(saddr(dp1 + (k * kHalo + hrow) * kF1P + 8 * (lane / 16)), a);
+          mma(acc, a, b.x, b.y);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int py, px;
+        const bool valid_h = class_pos(cls, r0 + g + 8 * h, py, px);
+        float pc[2][kPieces];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) split3(acc[2 * h + c] * d0[j][2 * h + c], pc[c]);
+        if (valid_h) {
+#pragma unroll
+          for (int k = 0; k < kPieces; ++k)
+            *reinterpret_cast<unsigned*>(dp0 + (k * kPos0 + py * kT0 + px) * kF0 + 2 * q) =
+                pack(pc[0][k], pc[1][k]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // dx per m-tile: parity class cls = (ry % 2, rx % 2), row a = ry / 2, the 16
+    // pixels b = rx / 2; every pixel of the class takes taps (ty, tx), ky = 1 - ry % 2
+    // + 2 ty, at stage-0 position (a + 1 + ry % 2 - ty, b + 1 + rx % 2 - tx).  K-step
+    // s pairs taps (s, 0) and (s, 1); each product starts from zero and is added in
+    // float32, and the sum is rounded once.
+#pragma unroll
+    for (int j = 0; j < kDxTiles / kWarps; ++j) {
+      const int mt = warp + kWarps * j, cls = mt / (kTX / 2), a = mt % (kTX / 2);
+      const int cy = cls >> 1, cx = cls & 1;
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int py = a + 1 + cy - s, px = lane % 16 + 1 + cx - lane / 16;
+        const unsigned arow = saddr(dp0 + (py * kT0 + px) * kF0);
+        const uint2 b = w0x[(cls * 2 + s) * 32 + lane];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) {
+          unsigned af[4];
+          ldsm_x4(arow + 2 * k * kPos0 * kF0, af);
+          float part[4] = {};
+          mma(part, af, b.x, b.y);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i] += part[i];
+        }
+      }
+      if (2 * q < C) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ry = 2 * a + cy, rx = 2 * (g + 8 * h) + cx;
+          *reinterpret_cast<unsigned*>(dxs + (ry * kTX + rx) * C + 2 * q) =
+              pack(acc[2 * h], acc[2 * h + 1]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the tile's dx, 16 bytes a store
+    constexpr int kPix = 8 / C;            // pixels per 16 bytes
+    for (int i = tid; i < kTX * kTX / kPix; i += blockDim.x) {
+      const int ry = i / (kTX / kPix), rx = i % (kTX / kPix) * kPix;
+      const int iy = kTX * t.ty + ry, ix = kTX * t.tx + rx;
+      if (iy < P && ix < P)
+        *reinterpret_cast<uint4*>(dx + (((size_t)t.n * P + iy) * P + ix) * C) =
+            *reinterpret_cast<const uint4*>(dxs + (ry * kTX + rx) * C);
+    }
+  }
+  cp_async_wait_all();
+}
+
 }  // namespace tc
 
 // Second pass of the input backward: one block per 32 x 32 input tile (tile (ty, tx)
@@ -943,6 +1278,29 @@ int dx_pass(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, cons
   return (int)cudaGetLastError();
 }
 
+// bfloat16: both passes on the tensor cores, each a fixed grid walking the tiles
+template <int C>
+int dx_pass_tc(const __nv_bfloat16* x, const __nv_bfloat16* w0, const __nv_bfloat16* b0,
+               const __nv_bfloat16* w1, const __nv_bfloat16* b1, const __nv_bfloat16* g1,
+               int B, int P, float* dpre1, __nv_bfloat16* dx, cudaStream_t stream) {
+  const int tps = tiles_per_side(P);
+  const int ntiles = B * tps * tps;
+  const int n1 = tc::kDpre1PerSM * tc::kSMs, n2 = tc::kDxPerSM * tc::kSMs;
+  const int nblk1 = ntiles < n1 ? ntiles : n1, nblk2 = ntiles < n2 ? ntiles : n2;
+  constexpr int bytes1 = tc::Smem<C>::bytes, bytes2 = tc::DxSmem<C>::bytes;
+  cudaError_t err = lshm::allow_smem(tc::dpre1_tc_kernel<C>, bytes1);
+  if (err != cudaSuccess) return (int)err;
+  tc::dpre1_tc_kernel<C><<<nblk1, kThreads, bytes1, stream>>>(x, w0, b0, w1, b1, g1, P, tps,
+                                                              ntiles, dpre1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = lshm::allow_smem(tc::head_dx_tc_kernel<C>, bytes2);
+  if (err != cudaSuccess) return (int)err;
+  tc::head_dx_tc_kernel<C><<<nblk2, kThreads, bytes2, stream>>>(x, w0, b0, w1, b1, dpre1, P,
+                                                                tps, ntiles, dx);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int fwd_c(const void* x, const void* w0, const void* b0, const void* w1, const void* b1,
           int B, int P, int C, void* out, cudaStream_t stream) {
@@ -972,10 +1330,17 @@ int dx_c(const void* x, const void* w0, const void* b0, const void* w1, const vo
          const void* g1, int B, int P, int C, float* dpre1, void* dx, cudaStream_t stream) {
   auto p = [](const void* v) { return static_cast<const T*>(v); };
   T* d = static_cast<T*>(dx);
-  if (C == 4)
-    return dx_pass<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
-  if (C == 8)
-    return dx_pass<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    if (C == 4)
+      return dx_pass<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+    if (C == 8)
+      return dx_pass<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+  } else {
+    if (C == 4)
+      return dx_pass_tc<4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+    if (C == 8)
+      return dx_pass_tc<8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,14 +22,17 @@ weight gradients, which ``EncHead``'s backward casts to the weights' dtype
 (``conv2d_outer.py::_vjp_bwd``); K5 keeps its intermediate dpre1 = g1 * elu'(a1) in
 float32 and rounds dx once to x's dtype.
 
-K3, K5 and float32 K4 sum on the CUDA cores.  bf16 K4 (``tc::head_bwd_tc_kernel``)
-runs each per-tile sum as a tensor-core product (``mma.sync``, bf16 operands, float32
-sums): x, the weights and e0 are exact bf16 operands, and the two float32 cotangents
-(dpre1, dpre0) go in as three bf16 pieces each whose sum is the float32 value exactly,
-so its sums keep float32 accuracy.  Its window stays bf16 in shared memory and the
-next tile's loads asynchronously.  Its a0 is summed in another order than the plain
-version's, so an e0 near a bf16 tie may round the other way: it lies as far from the
-head computed in float64 as the plain float32 version does (``chip_smoke.py``).
+K3, float32 K4 and float32 K5 sum on the CUDA cores.  bf16 K4
+(``tc::head_bwd_tc_kernel``) and bf16 K5 (``tc::dpre1_tc_kernel`` then
+``tc::head_dx_tc_kernel``) run each per-tile sum as a tensor-core product
+(``mma.sync``, bf16 operands, float32 sums): x, the weights and e0 are exact bf16
+operands, and the two float32 cotangents (dpre1, dpre0) go in as three bf16 pieces each
+whose sum is the float32 value exactly, so their sums keep float32 accuracy.  Their
+windows stay bf16 in shared memory and the next tile's loads asynchronously.  They sum
+a0 in another order than the plain version, so an e0 near a bf16 tie may round the
+other way: K4's sums lie as far from the head computed in float64 as the plain float32
+version's do, and K5's bf16 dx as far as the plain version's rounded dx
+(``chip_smoke.py``).
 
 Bound on the H100 at B=420, P=128, C=4, float32: forward 3.08 GFLOP (46 us at
 67 TFLOP/s FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; weight
@@ -38,8 +41,9 @@ over 240.8 MB (72 us), bound by operations.  bfloat16: forward and weight backwa
 each move 65.4 MB (19.5 us), and their operations take 3.1 and 7.6 us on the bf16
 tensor cores (989 TFLOP/s), so both are bound by bytes; the input backward must move
 120.4 MB (35.9 us) against 6.2 us of operations, bound by bytes (its two passes move
-216.8 MB: x is read twice, the float32 dpre1 written and read).  What binds each kernel
-on the card, beyond these bounds, is in the CUDA source's header.
+216.8 MB: x is read twice, the float32 dpre1 written and read; their tensor-core
+products, with the pieces and the padding, are about 25 GFLOP, 26 us).  What binds
+each kernel on the card, beyond these bounds, is in the CUDA source's header.
 """
 
 from __future__ import annotations
@@ -201,6 +205,9 @@ def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
         return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0].to(x.dtype)
     lib = _lib()
     bf16 = x.dtype == torch.bfloat16
+    if bf16 and g1.data_ptr() % 4:
+        raise ValueError("g1: the bf16 input-gradient kernel loads channel pairs from a "
+                         "4-byte aligned address")
     dx = torch.empty_like(x)
     # first pass: g1 * elu'(a1), float32 in either dtype (the TPU kernel's z1 scratch)
     dpre1 = torch.empty(g1.shape, dtype=torch.float32, device=x.device)
