@@ -9,14 +9,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. parity     each kernel of K1-K5 against its plain PyTorch version at the main
                 path's shapes (K1/K2 at D = 256 and at the Fourier cascade's 288;
                 relative max error 1e-5 forward, 2e-5 gradients), bit-identical repeats
-                of the three backward kernels, and CUDA-event timings (median of 20
-                after warm-up, tools/measure.py) of kernel, plain version and library
-                yardstick; then K3, K4 and K5 in bfloat16 the same way (K3's output
-                4e-3, K5's dx one bf16 ulp of the largest value, each with the share of
-                elements that differ at all; K4's float32 sums before the cast 1e-4; K4
-                and K5 at C = 4 and at C = 8 (B = 16), each also with its plain
-                version's distance from the head in float64; bit-identical repeats;
-                yardsticks in bf16, channels-last)
+                of the three backward kernels, K4 also at C = 8 (B = 16) and, with its
+                plain version, against the head in float64 on the first 8 samples, and
+                CUDA-event timings (median of 20 after warm-up, tools/measure.py) of
+                kernel, plain version and library yardstick; then K3, K4 and K5 in
+                bfloat16 the same way (K3's output 4e-3, K5's dx one bf16 ulp of the
+                largest value, each with the share of elements that differ at all; K4's
+                float32 sums before the cast 1e-4; K4 and K5 at C = 4 and at C = 8 (B =
+                16), each also with its plain version's distance from the head in
+                float64; bit-identical repeats; yardsticks in bf16, channels-last), with
+                a SHA-256 digest of bf16 K4's and K5's outputs
   4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
                 synthetic extract held in memory, with every kernel's launch count
@@ -160,20 +162,36 @@ def khm_phase(dev) -> list[dict]:
     return rows
 
 
+def head_inputs(dev) -> tuple:
+    """The parity phase's head inputs at the main path's shapes: x [420, 128, 128, 4]
+    NHWC, w0, b0, w1, b1 and the cotangent g1, float32, from seed 1."""
+    B, P, C, F0, F1 = 420, 128, 4, 8, 12
+    g = torch.Generator().manual_seed(1)
+    return tuple(t.to(dev) for t in (
+        torch.randn(B, P, P, C, generator=g), torch.randn(F0, C, 4, 4, generator=g) * 0.2,
+        torch.randn(F0, generator=g) * 0.1, torch.randn(F1, F0, 4, 4, generator=g) * 0.2,
+        torch.randn(F1, generator=g) * 0.1, torch.randn(B, P // 4, P // 4, F1, generator=g)))
+
+
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes in order: equal digests, equal outputs bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def head_phase(dev) -> list[dict]:
     import torch.nn.functional as F
 
     from lshm_tpu_torch.kernels import conv_head as H
-    from lshm_tpu_torch.tools.measure import bound, time_ms
+    from lshm_tpu_torch.tools.measure import PEAK_BF16_TC_FLOP_S, bound, time_ms
 
-    B, P, C, F0, F1 = 420, 128, 4, 8, 12
-    g = torch.Generator().manual_seed(1)
-    x = torch.randn(B, P, P, C, generator=g).to(dev)
-    w0 = (torch.randn(F0, C, 4, 4, generator=g) * 0.2).to(dev)
-    b0 = (torch.randn(F0, generator=g) * 0.1).to(dev)
-    w1 = (torch.randn(F1, F0, 4, 4, generator=g) * 0.2).to(dev)
-    b1 = (torch.randn(F1, generator=g) * 0.1).to(dev)
-    g1 = torch.randn(B, P // 4, P // 4, F1, generator=g).to(dev)
+    x, w0, b0, w1, b1, g1 = head_inputs(dev)
+    B, P, _, C = x.shape
+    F0, F1 = w0.shape[0], w1.shape[0]
     y = H.head_forward(x, w0, b0, w1, b1)
     y_p = H.enc_head_plain(x, w0, b0, w1, b1)
     gr = H.head_weight_grads(x, w0, b0, w1, b1, g1)
@@ -185,6 +203,10 @@ def head_phase(dev) -> list[dict]:
     # float64 reference on the first 8 samples: cuDNN's NHWC convolutions may sum in
     # the kernel's own order, so agreement with the plain version can be bit-exact
     y64 = H.enc_head_plain(*(t.double() for t in (x[:8], w0, b0, w1, b1)))
+    first8 = (x[:8], w0, b0, w1, b1, g1[:8])
+    gr8, gr8_p = H.head_weight_grads(*first8), H.head_grads_plain(*first8)
+    f64 = grads_f64(first8)
+    c8 = head_c8(dev, torch.float32)
     torch.cuda.synchronize()
     fwd_rel = rel_err(y, y_p)
     bwd_rel = max(rel_err(a, b) for a, b in zip(gr, gr_p))
@@ -193,10 +215,17 @@ def head_phase(dev) -> list[dict]:
            "fwd_rel_err_vs_f64": {"kernel": rel_err(y[:8].double(), y64),
                                   "plain": rel_err(y_p[:8].double(), y64)},
            "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
-           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
+           "bwd_rel_err_vs_f64": vs_f64({"kernel": gr8, "plain": gr8_p}, f64[1:]),
+           "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)), **c8,
            "dx_rel_err": rel_err(dx, dx_p), "dx_bit_identical": bool(torch.equal(dx, dx2))}
     emit(row)
+    # K4 no farther from the float64 head than twice the plain version: a kernel that
+    # dropped piece pairs (three pairs read ~1e-5, six ~4e-7) fails here
+    near_f64 = all(d["kernel"] <= 2 * d["plain"]
+                   for d in (row["bwd_rel_err_vs_f64"], row["bwd_c8_rel_err_vs_f64"]))
     if (fwd_rel > 1e-5 or bwd_rel > 2e-5 or not row["bwd_bit_identical"]
+            or row["bwd_c8_rel_err"] > 2e-5 or not row["bwd_c8_bit_identical"]
+            or not near_f64
             or row["fwd_rel_err_vs_f64"]["kernel"] > 1e-5
             or row["dx_rel_err"] > 2e-5 or not row["dx_bit_identical"]):
         raise AssertionError(f"conv-head kernels disagree with their plain versions: {row}")
@@ -225,8 +254,11 @@ def head_phase(dev) -> list[dict]:
     mac0 = B * (P // 2) ** 2 * F0 * 16 * C        # stage-0 multiply-adds
     mac1 = B * (P // 4) ** 2 * F1 * 16 * F0       # stage-1 multiply-adds
     b3 = bound(in_b + out_b + w_b, 2.0 * (mac0 + mac1))
-    # backward: recompute both stages, dW1 and the stage-0 cotangent (mac1 each), dW0
-    b4 = bound(in_b + out_b + 2 * w_b, 2.0 * (mac0 + mac1 + 2 * mac1 + mac0))
+    # backward: recompute both stages, dW1 and the stage-0 cotangent (mac1 each), dW0;
+    # K4 computes float32-accurate products on the tensor cores, each as six bf16 piece
+    # pairs, which the FP32 units' rate would overstate
+    b4 = bound(in_b + out_b + 2 * w_b, 6 * 2.0 * (2 * mac0 + 3 * mac1),
+               PEAK_BF16_TC_FLOP_S)
     # input backward: recompute both stages, the stage-0 cotangent (mac1), dx (mac0);
     # reads x and g1, writes dx
     b5 = bound(2 * in_b + out_b + w_b, 2.0 * (2 * mac0 + 2 * mac1))
@@ -239,6 +271,7 @@ def head_phase(dev) -> list[dict]:
              bound_ms=b3[0], bound_by=b3[1], library_ms=time_ms(cudnn_fwd)),
         dict(name="K4 head_bwd", route="cuda", source="lshm_tpu_torch/csrc/conv_head.cu",
              replaces="lshm_tpu/kernels/conv2d_outer.py:334", counter="head_bwd",
+             arch="mma.sync m16n8k16 bf16, operands in 3 pieces, 6 pairs",
              max_abs_err=max(abs_err(a, b) for a, b in zip(gr, gr_p)),
              ms=time_ms(lambda: H.head_weight_grads(x, w0, b0, w1, b1, g1)),
              plain_ms=time_ms(lambda: H.head_grads_plain(x, w0, b0, w1, b1, g1)),
@@ -272,7 +305,7 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     dx = H.head_input_grad(*args, g1b)
     dx_p = dx_plain_bf16(*args, g1b)
     dx2 = H.head_input_grad(*args, g1b)
-    c8 = head_bf16_c8(x.device)
+    c8 = head_c8(x.device, torch.bfloat16)
     f64 = grads_f64((*args, g1b))
     torch.cuda.synchronize()
     row = {"phase": "parity", "kernel": "conv_head_bf16", "x": list(xb.shape),
@@ -283,7 +316,8 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
            "bwd_rel_err_vs_f64": vs_f64({"kernel": gr, "plain": gr_p}, f64[1:]),
            "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
            **c8, **dx_agreement(dx, dx_p, dx2),
-           "dx_vs_f64": vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1])}
+           "dx_vs_f64": vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1]),
+           "digest": {"k4_bf16": digest(gr), "k5_bf16": digest([dx])}}
     emit(row)
     # K3 bf16 rounds where its plain version rounds, and on the H100 no element of the
     # two differs: a kernel that drops or moves the rounding of e0 fails here
@@ -349,10 +383,11 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     ]
 
 
-def head_bf16_c8(dev) -> dict:
-    """K4 and K5 bf16 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the
-    tensor-core stage-0 products, and dx fills the whole n-tile) against their plain
-    versions, and two calls of each bit for bit."""
+def head_c8(dev, dtype) -> dict:
+    """K4 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the tensor-core
+    stage-0 products) against its plain version, each also against the head in
+    float64, and two calls bit for bit; in bf16 K5 the same way (dx fills the whole
+    n-tile)."""
     from lshm_tpu_torch.kernels import conv_head as H
 
     B, P, C = 16, 128, 8
@@ -360,29 +395,33 @@ def head_bf16_c8(dev) -> dict:
     args = [torch.randn(B, P, P, C, generator=g), torch.randn(8, C, 4, 4, generator=g) * 0.2,
             torch.randn(8, generator=g) * 0.1, torch.randn(12, 8, 4, 4, generator=g) * 0.2,
             torch.randn(12, generator=g) * 0.1, torch.randn(B, P // 4, P // 4, 12, generator=g)]
-    args = [t.to(dev, torch.bfloat16) for t in args]
+    args = [t.to(dev, dtype) for t in args]
     gr, gr2 = H.head_weight_grads(*args), H.head_weight_grads(*args)
     gr_p = H.head_grads_plain(*args)
-    dx, dx2, dx_p = H.head_input_grad(*args), H.head_input_grad(*args), dx_plain_bf16(*args)
-    dx_row = dx_agreement(dx, dx_p, dx2)
     f64 = grads_f64(args)
-    return {"bwd_c8_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
-            "bwd_c8_rel_err_vs_f64": vs_f64({"kernel": gr, "plain": gr_p}, f64[1:]),
-            "bwd_c8_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)),
-            **{k.replace("dx_", "dx_c8_"): v for k, v in dx_row.items()},
-            "dx_c8_vs_f64": vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1])}
+    row = {"bwd_c8_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
+           "bwd_c8_rel_err_vs_f64": vs_f64({"kernel": gr, "plain": gr_p}, f64[1:]),
+           "bwd_c8_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+    if dtype == torch.bfloat16:
+        dx, dx2, dx_p = (H.head_input_grad(*args), H.head_input_grad(*args),
+                         dx_plain_bf16(*args))
+        row.update({k.replace("dx_", "dx_c8_"): v
+                    for k, v in dx_agreement(dx, dx_p, dx2).items()},
+                   dx_c8_vs_f64=vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1]))
+    return row
 
 
 def grads_f64(args) -> tuple:
-    """dx, dW0, db0, dW1, db1 of the plain head with its convolutions in float64 and e0
-    still rounded to bf16.  A kernel that sums a0 in another order can round an e0 near
-    a bf16 tie the other way; these show how far it and its plain version each lie from
-    the nearly exact result."""
+    """dx, dW0, db0, dW1, db1 of the plain head with its convolutions in float64 (on
+    bf16 inputs e0 still rounded to bf16): how far a kernel and its plain version each
+    lie from the nearly exact result.  (A bf16 kernel that sums a0 in another order can
+    round an e0 near a bf16 tie the other way.)"""
     from lshm_tpu_torch.kernels import conv_head as H
 
     with torch.enable_grad():
         ins = [t.detach().double().requires_grad_() for t in args[:5]]
-        return torch.autograd.grad(H._head_f32(*ins, round_e0=True), ins, args[5].double())
+        y = H._head_f32(*ins, round_e0=args[0].dtype == torch.bfloat16)
+        return torch.autograd.grad(y, ins, args[5].double())
 
 
 def vs_f64(forms: dict, want) -> dict:

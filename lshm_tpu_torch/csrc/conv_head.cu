@@ -13,7 +13,8 @@
 // K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  In K3 everything inside
 // is float32: the window and the weights are widened in shared memory, so bf16 products
 // are exact and every sum is a float32 sum in the same (ky, kx, c) order as the float
-// kernel; bf16 K4 and K5 keep them bf16 and sum on the tensor cores (below).  In bf16,
+// kernel; bf16 K4 and K5 keep them bf16 and sum on the tensor cores, and float32 K4
+// sums there too, with each float32 operand in three bf16 pieces (below).  In bf16,
 // as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
 // (the TPU kernel stores it in x's dtype), stage 1 sums over the rounded e0, and the
 // output is rounded to bf16; K4 and K5 take elu' of the unrounded float a0, K4 sums dW1
@@ -39,9 +40,7 @@
 // stage-1 outputs is exact: a block adds only its own outputs' share of each halo
 // position's gradient, so nothing is counted twice.  Each block writes one row of
 // partials [nblocks, 2068 for C = 4]; a second pass adds the rows in a fixed order, so
-// two runs are bit-identical.  float32 (head_bwd_kernel) runs on the CUDA cores: its
-// sums live in shared memory, each entry owned by one thread, and each is a serial dot
-// product over shared memory.
+// two runs are bit-identical.  Both dtypes sum on the tensor cores (below).
 //
 // Backward, weights, bfloat16 (tc::head_bwd_tc_kernel): the same tiles, grid and rows of
 // partials, with every per-tile sum a tensor-core product (mma.sync m16n8k16, bf16
@@ -71,6 +70,24 @@
 // a0 in another order than the CUDA cores, so an e0 near a bf16 tie may round the other
 // way than in the plain version; chip_smoke.py shows the kernel as far from the float64
 // head as the plain float32 version is.
+//
+// Backward, weights, float32 (tc::head_bwd_f32_tc_kernel): bf16 K4's tiles, grid, class
+// order and products, with every float32 operand in three exact bf16 pieces: the window
+// x, w0 and w1 (split once per block into the lane-order fragments), e0 (not rounded;
+// [3][324][8] bf16) and, as in bf16, dpre1 and dpre0.  Each product of two split
+// operands runs, per k-step, the six piece pairs of order 2^-16 and above (mma_pairs):
+// hi.hi into a partial from zero, hi.mid, hi.lo, mid.hi, mid.mid and lo.hi chained into
+// a second, their sum added in float32.  mid.lo, lo.mid and lo.lo lie below float32's
+// rounding: six pairs come as close to the float64 head as all nine, and closer than a
+// float32 sum (tests/test_torch_head_bwd_f32_tc.py emulates the decomposition).  The
+// next tile's window arrives as float32 by cp.async into one raw buffer; each thread
+// splits the chunks it copied itself into the window's pieces, once per tile, so a tile
+// takes four block-wide syncs.  Shared memory at C = 4: window pieces 34.7 KB, raw
+// window 23.1, e0 15.6, dpre1 6.2, dpre0 staging 6.1, weight fragments 27.6 (w0 3.1, w1
+// for stage 1 and for the gather 12.3 each): 113,440 bytes, two blocks of 256 threads
+// per SM; at C = 8 174,272 bytes, one block.  To fit two blocks' 128 registers a thread,
+// the float32 stage 0, stage 1 and gather keep their k-step loops rolled and dW1 loads
+// its B fragments one n-tile at a time.
 //
 // Backward, input (K5), in two passes, each element a gather with no float atomics
 // (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
@@ -109,23 +126,29 @@
 // Bound on the H100 at the main path's shapes (B=420, P=128, C=4), float32: the
 // forward reads 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP
 // (46 us at 67 TFLOP/s FP32 without tensor cores), so it is bound by operations; the
-// weight backward reads 130.7 MB and does 7.5 GFLOP (112 us), also bound by operations;
-// the input backward moves 240.8 MB (72 us) and does 6.17 GFLOP (92 us), bound by
-// operations.  bfloat16: the forward and the weight backward each move 65.4 MB (x
-// 55.05 MB plus the output or g1, 10.32 MB: 19.5 us), and their 3.08 and 7.5 GFLOP
-// take 3.1 and 7.6 us on the bf16 tensor cores (989 TFLOP/s; bf16 products are exact
-// in a float32 sum), so both are bound by bytes; the input backward must move 120.4 MB
-// (x and dx 55.05 MB each, g1: 35.9 us) against 6.2 us of operations, bound by bytes,
-// and its two passes move 216.8 MB (x twice, the float32 dpre1 written and read; 65 us).
-// K3, float32 K4 and float32 K5 run on the CUDA cores, whose float32 arithmetic binds
-// them.  bf16 K4 runs 928 tensor-core products a tile at C = 4 (with the pieces and the
-// padding 25.5 GFLOP, 26 us at 989 TFLOP/s) and moves its 65.4 MB once (19.5 us); what
-// is left on the CUDA cores binds it: three block-wide syncs a tile, the exps of
-// elu(a0), elu'(a0) and elu'(a1), the piece splits and the fragment addressing.  bf16
-// K5 runs 928 products a tile too (pass 1 160, pass 2 768: 25.5 GFLOP, 26 us) and is
-// bound the same way: six block-wide syncs a tile over both passes, 5,952 exps, 3,792
-// float32 values split into pieces, with 16 to 24 warps per SM to hide the ldmatrix ->
-// mma chains.
+// weight backward reads 130.7 MB and does 7.5 GFLOP, which take 45 us on the tensor
+// cores at float32's accuracy (six bf16 piece pairs each, 44.9 GFLOP at 989 TFLOP/s;
+// 112 us on the FP32 units), bound by operations; the input backward moves 240.8 MB
+// (72 us) and does 6.17 GFLOP (92 us), bound by operations.  bfloat16: the forward and
+// the weight backward each move 65.4 MB (x 55.05 MB plus the output or g1, 10.32 MB:
+// 19.5 us), and their 3.08 and 7.5 GFLOP take 3.1 and 7.6 us on the bf16 tensor cores
+// (989 TFLOP/s; bf16 products are exact in a float32 sum), so both are bound by bytes;
+// the input backward must move 120.4 MB (x and dx 55.05 MB each, g1: 35.9 us) against
+// 6.2 us of operations, bound by bytes, and its two passes move 216.8 MB (x twice, the
+// float32 dpre1 written and read; 65 us).
+// K3 and float32 K5 run on the CUDA cores, whose float32 arithmetic binds them.  float32
+// K4 runs 2,496 tensor-core products a tile at C = 4 (with the six pairs and the padding
+// 68.7 GFLOP, 69 us at 989 TFLOP/s) and moves its 130.7 MB once (39 us); like bf16 K4
+// it is bound by what is left on the CUDA cores, and has more of it: four block-wide
+// syncs a tile, 8,368 float32 values split a tile (the window's 5,776, e0's 2,592),
+// about twice bf16 K4's ldmatrix traffic.  bf16 K4 runs 928 tensor-core products a
+// tile at C = 4 (with the pieces and the padding 25.5 GFLOP, 26 us at 989 TFLOP/s) and
+// moves its 65.4 MB once (19.5 us); what is left on the CUDA cores binds it: three
+// block-wide syncs a tile, the exps of elu(a0), elu'(a0) and elu'(a1), the piece splits
+// and the fragment addressing.  bf16 K5 runs 928 products a tile too (pass 1 160,
+// pass 2 768: 25.5 GFLOP, 26 us) and is bound the same way: six block-wide syncs a tile
+// over both passes, 5,952 exps, 3,792 float32 values split into pieces, with 16 to 24
+// warps per SM to hide the ldmatrix -> mma chains.
 
 #include "common.cuh"
 
@@ -156,8 +179,6 @@ struct Layout {
   static constexpr int oW0 = 0, oB0 = 16 * C * kF0, oW1 = oB0 + kF0,
                        oB1 = oW1 + 16 * kF0 * kF1;
   static constexpr size_t fwd_bytes = sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + s0);
-  static constexpr size_t bwd_bytes =
-      sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + 2 * s0 + kT1 * kT1 * kF1 + nacc);
   static constexpr size_t dx_bytes =
       sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + 2 * s0 + dp);
 };
@@ -295,109 +316,6 @@ head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __re
   }
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-head_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
-                const T* __restrict__ w1, const T* __restrict__ b1,
-                const T* __restrict__ g1, int P, int tps, int ntiles,
-                float* __restrict__ partial) {
-  using L = Layout<C>;
-  extern __shared__ float4 smem4[];
-  float* xw = reinterpret_cast<float*>(smem4);
-  float* w0s = xw + L::xw;
-  float* b0s = w0s + L::w0;
-  float* w1s = b0s + kF0;
-  float* b1s = w1s + L::w1;
-  float* e0 = b1s + kF1;                  // elu(a0), 0 on the padding ring
-  float* d0 = e0 + L::s0;                 // elu'(a0), then dpre0 in place
-  float* dp1 = d0 + L::s0;                // [64, F1] dpre1
-  float* acc = dp1 + kT1 * kT1 * kF1;     // [nacc] this block's gradient sums
-  const int H0 = P / 2, H1 = P / 4;
-  const int tid = threadIdx.x;
-
-  load_weights<C>(w0, b0, w1, b1, w0s, b0s, w1s, b1s);
-  for (int i = tid; i < L::nacc; i += blockDim.x) acc[i] = 0.0f;
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const Tile t = decode_tile(tile, tps);
-    load_window<C>(x, P, t, xw);
-    __syncthreads();
-    stage0<C, T>(xw, w0s, b0s, H0, t, e0, d0);
-    __syncthreads();
-
-    // dpre1 = g1 * elu'(a1); 0 outside the image
-    {
-      float a1[kPerGroup];
-      const int p = tid % (kT1 * kT1), grp = tid / (kT1 * kT1);
-      float* dp = dp1 + p * kF1 + grp * kPerGroup;
-      if (stage1(e0, w1s, b1s, H1, t, a1)) {
-        const T* g = g1 + out_index(t, H1);
-#pragma unroll
-        for (int j = 0; j < kPerGroup; ++j) dp[j] = lshm::to_f32(g[j]) * lshm::elu_grad(a1[j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kPerGroup; ++j) dp[j] = 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // dW1 (OIHW index) and db1
-    for (int i = tid; i < 16 * kF0 * kF1; i += blockDim.x) {
-      const int kx = i % 4, ky = (i / 4) % 4, f0 = (i / 16) % kF0, f1 = i / (16 * kF0);
-      float s = 0.0f;
-      for (int p = 0; p < kT1 * kT1; ++p) {
-        const int oyl = p / kT1, oxl = p % kT1;
-        s += dp1[p * kF1 + f1] * e0[((2 * oyl + ky) * kT0 + 2 * oxl + kx) * kF0 + f0];
-      }
-      acc[L::oW1 + i] += s;
-    }
-    if (tid < kF1) {
-      float s = 0.0f;
-      for (int p = 0; p < kT1 * kT1; ++p) s += dp1[p * kF1 + tid];
-      acc[L::oB1 + tid] += s;
-    }
-    // dpre0 = (this tile's share of d e0) * elu'(a0), written over d0
-    for (int i = tid; i < L::s0; i += blockDim.x) {
-      const int f0 = i % kF0, pos = i / kF0;
-      const int py = pos / kT0, px = pos % kT0;
-      float s = 0.0f;
-      for (int ky = py & 1; ky < 4; ky += 2) {
-        const int oyl = (py - ky) / 2;
-        if (oyl < 0 || oyl >= kT1) continue;
-        for (int kx = px & 1; kx < 4; kx += 2) {
-          const int oxl = (px - kx) / 2;
-          if (oxl < 0 || oxl >= kT1) continue;
-          const float* dp = dp1 + (oyl * kT1 + oxl) * kF1;
-          const float* wp = w1s + ((ky * 4 + kx) * kF0 + f0) * kF1;
-#pragma unroll
-          for (int f1 = 0; f1 < kF1; ++f1) s += dp[f1] * wp[f1];
-        }
-      }
-      d0[i] = s * d0[i];
-    }
-    __syncthreads();
-
-    // dW0 (OIHW index) and db0
-    for (int i = tid; i < 16 * C * kF0; i += blockDim.x) {
-      const int kx = i % 4, ky = (i / 4) % 4, c = (i / 16) % C, f0 = i / (16 * C);
-      float s = 0.0f;
-      for (int pos = 0; pos < kT0 * kT0; ++pos) {
-        const int py = pos / kT0, px = pos % kT0;
-        s += d0[pos * kF0 + f0] * xw[((2 * py + ky) * kXW + 2 * px + kx) * C + c];
-      }
-      acc[L::oW0 + i] += s;
-    }
-    if (tid < kF0) {
-      float s = 0.0f;
-      for (int pos = 0; pos < kT0 * kT0; ++pos) s += d0[pos * kF0 + tid];
-      acc[L::oB0 + tid] += s;
-    }
-    __syncthreads();
-  }
-  float* out = partial + (size_t)blockIdx.x * L::nacc;
-  for (int i = tid; i < L::nacc; i += blockDim.x) out[i] = acc[i];
-}
-
 // ---- Backward, weights, bfloat16 (K4 bf16) on the tensor cores ----
 //
 // Every per-tile sum is an mma.sync m16n8k16 product (bf16 operands, float32
@@ -420,6 +338,7 @@ constexpr int kP1 = kT1 * kT1;              // 64 stage-1 outputs of a tile
 constexpr int kDpRows = kP1 + 1;            // dpre1 rows of a piece, the last one zero
 constexpr int kF1P = 16;                    // F1 padded to two n-tiles
 constexpr int kPieces = 3;
+constexpr int kPos0 = kT0 * kT0;           // 324 stage-0 positions
 static_assert(kMt0 % kWarps == 0, "stage-0 m-tiles per warp");
 static_assert(kWarps == 2 * (kP1 / 16), "one stage-1 (m, n) tile per warp");
 static_assert(kWarps == 16 * kF0 / 16, "one dW1 m-tile per warp");
@@ -508,6 +427,38 @@ __device__ __forceinline__ void split3(float v, float p[kPieces]) {
   p[2] = r - p[1];
 }
 
+// Pieces of an operand stored as T: a bf16 value is one piece, a float32 one three.
+template <typename T>
+constexpr int kPiecesOf = std::is_same<T, float>::value ? 3 : 1;
+
+// v in kPc pieces, kept as float: v itself for one piece (pack rounds it to bf16),
+// split3 for three
+template <int kPc>
+__device__ __forceinline__ void split(float v, float p[kPc]) {
+  if constexpr (kPc == 1) {
+    p[0] = v;
+  } else {
+    split3(v, p);
+  }
+}
+
+// d += A B for A and B each in three bf16 pieces (0 hi, 1 mid, 2 lo), through the six
+// piece pairs of order 2^-16 and above: hi.hi into one partial from zero, hi.mid,
+// hi.lo, mid.hi, mid.mid and lo.hi chained into a second, their sum added in float32.
+// mid.lo, lo.mid and lo.lo (order 2^-24 and below) are left out.
+__device__ __forceinline__ void mma_pairs(float d[4], const unsigned a[kPieces][4],
+                                          const uint2 b[kPieces]) {
+  float hh[4] = {}, lo[4] = {};
+  mma(hh, a[0], b[0].x, b[0].y);
+  mma(lo, a[0], b[1].x, b[1].y);
+  mma(lo, a[0], b[2].x, b[2].y);
+  mma(lo, a[1], b[0].x, b[0].y);
+  mma(lo, a[1], b[1].x, b[1].y);
+  mma(lo, a[2], b[0].x, b[0].y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += hh[i] + lo[i];
+}
+
 // Stage-0 row r (0 .. 95) of parity class cls: tile position (py, px); false for the
 // padding rows (81 .. 95), which alias position (cls >> 1, cls & 1).
 __device__ __forceinline__ bool class_pos(int cls, int r, int& py, int& px) {
@@ -531,52 +482,69 @@ __device__ void load_window_async(const bf16* __restrict__ x, int P, Tile t, bf1
   }
 }
 
-// The B fragments of the three weight operands, once per block, in lane order:
-// w0f[s] stage 0 (k = (ky, kx, c) in [16 s, 16 s + 16), n = f0); w1f[nt][s] stage 1
-// (k = taps 2s, 2s + 1 by f0, n = f1 in [8 nt, 8 nt + 8)); w1g[tap] the d e0 gather
-// (k = f1, n = f0).  f1 >= 12 is 0.
-template <int C>
-__device__ void load_fragments(const bf16* __restrict__ w0, const bf16* __restrict__ b0,
-                               const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+// The B fragments of the three weight operands, once per block, in lane order, piece p
+// of each (one piece for bf16 weights, three for float32): w0f[p][s] stage 0 (k = (ky,
+// kx, c) in [16 s, 16 s + 16), n = f0); w1f[p][nt][s] stage 1 (k = taps 2s, 2s + 1 by
+// f0, n = f1 in [8 nt, 8 nt + 8)); w1g[p][tap] the d e0 gather (k = f1, n = f0).
+// f1 >= 12 is 0.
+template <int C, typename T>
+__device__ void load_fragments(const T* __restrict__ w0, const T* __restrict__ b0,
+                               const T* __restrict__ w1, const T* __restrict__ b1,
                                uint2* w0f, uint2* w1f, uint2* w1g, float* b0s, float* b1s) {
-  const bf16 zero = __float2bfloat16_rn(0.0f);
+  constexpr int kPc = kPiecesOf<T>;
   auto W0 = [&](int k, int f0) {           // k = (ky * 4 + kx) * C + c
-    return w0[(f0 * C + k % C) * 16 + k / C];
+    return lshm::to_f32(w0[(f0 * C + k % C) * 16 + k / C]);
   };
   auto W1 = [&](int f1, int f0, int tap) {
-    return f1 < kF1 ? w1[(f1 * kF0 + f0) * 16 + tap] : zero;
+    return f1 < kF1 ? lshm::to_f32(w1[(f1 * kF0 + f0) * 16 + tap]) : 0.0f;
   };
   for (int i = threadIdx.x; i < (C + 16 + 16) * 32; i += blockDim.x) {
     const int lane = i % 32, frag = i / 32, g = lane / 4, q = lane % 4;
+    float v[4];                            // b0 = (v[0], v[1]), b1 = (v[2], v[3])
+    uint2* dst;
+    int stride;                            // between pieces
     if (frag < C) {
       const int k = 16 * frag + 2 * q;
-      w0f[i] = make_uint2(pack(W0(k, g), W0(k + 1, g)),
-                          pack(W0(k + 8, g), W0(k + 9, g)));
+      v[0] = W0(k, g), v[1] = W0(k + 1, g), v[2] = W0(k + 8, g), v[3] = W0(k + 9, g);
+      dst = w0f + i;
+      stride = 32 * C;
     } else if (frag < C + 16) {
       const int nt = (frag - C) / 8, s = (frag - C) % 8, f1 = 8 * nt + g;
-      w1f[i - 32 * C] =
-          make_uint2(pack(W1(f1, 2 * q, 2 * s), W1(f1, 2 * q + 1, 2 * s)),
-                     pack(W1(f1, 2 * q, 2 * s + 1), W1(f1, 2 * q + 1, 2 * s + 1)));
+      v[0] = W1(f1, 2 * q, 2 * s), v[1] = W1(f1, 2 * q + 1, 2 * s);
+      v[2] = W1(f1, 2 * q, 2 * s + 1), v[3] = W1(f1, 2 * q + 1, 2 * s + 1);
+      dst = w1f + i - 32 * C;
+      stride = 32 * 16;
     } else {
       const int tap = frag - C - 16;
-      w1g[i - 32 * (C + 16)] =
-          make_uint2(pack(W1(2 * q, g, tap), W1(2 * q + 1, g, tap)),
-                     pack(W1(2 * q + 8, g, tap), W1(2 * q + 9, g, tap)));
+      v[0] = W1(2 * q, g, tap), v[1] = W1(2 * q + 1, g, tap);
+      v[2] = W1(2 * q + 8, g, tap), v[3] = W1(2 * q + 9, g, tap);
+      dst = w1g + i - 32 * (C + 16);
+      stride = 32 * 16;
     }
+    float pc[4][kPc];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<kPc>(v[e], pc[e]);
+#pragma unroll
+    for (int p = 0; p < kPc; ++p)
+      dst[p * stride] = make_uint2(pack(pc[0][p], pc[1][p]), pack(pc[2][p], pc[3][p]));
   }
   if (threadIdx.x < kF0) b0s[threadIdx.x] = lshm::to_f32(b0[threadIdx.x]);
   if (threadIdx.x < kF1P)
     b1s[threadIdx.x] = threadIdx.x < kF1 ? lshm::to_f32(b1[threadIdx.x]) : 0.0f;
 }
 
-// Stage 0 of tile t on this warp's three class m-tiles, from the bf16 window xw: with
-// kE0, e0 = elu(a0) rounded to bf16 (0 on conv1's padding ring) into e0 at its tile
-// position; with kD0, elu'(a0) of the unrounded a0 (0 on the ring and on the padding
-// rows) into d0, in the accumulator layout (rows r0 + g, r0 + g + 8; f0 2q, 2q + 1).
-template <int C, bool kE0, bool kD0>
+// Stage 0 of tile t on this warp's three class m-tiles, from the window xw in the
+// pieces of T (kXwPiece elements apart): with kE0, e0 = elu(a0) (0 on conv1's padding
+// ring) into e0 at its tile position, rounded to bf16 for T = bf16, in three pieces
+// (kPos0 * kF0 elements apart) for float; with kD0, elu'(a0) of the unrounded a0 (0 on
+// the ring and on the padding rows) into d0, in the accumulator layout (rows r0 + g,
+// r0 + g + 8; f0 2q, 2q + 1).
+template <int C, typename T, bool kE0, bool kD0>
 __device__ __forceinline__ void stage0_tc(const bf16* xw, const uint2* w0f, const float* b0s,
                                           int H0, Tile t, bf16* e0,
                                           float d0[kMtPerWarp][4]) {
+  constexpr int kPc = kPiecesOf<T>;
+  constexpr unsigned kXwPiece = kXW * kXW * C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
 #pragma unroll
   for (int j = 0; j < kMtPerWarp; ++j) {
@@ -585,32 +553,45 @@ __device__ __forceinline__ void stage0_tc(const bf16* xw, const uint2* w0f, cons
     class_pos(cls, r0 + lane % 16, py, px);
     const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 16);
     float acc[4] = {};
-#pragma unroll
+    constexpr int kUnroll = kPc == 1 ? C : 1;   // float32: fewer registers live
+#pragma unroll (kUnroll)
     for (int s = 0; s < C; ++s) {        // k-step s: ky = 16 s / 4C
-      unsigned a[4];
-      ldsm_x4(arow + 2 * ((16 * s / (4 * C)) * kXW * C + (16 * s) % (4 * C)), a);
-      const uint2 b = w0f[s * 32 + lane];
-      float part[4] = {};                // each k-step alone, added rounding to nearest
-      mma(part, a, b.x, b.y);
+      const unsigned at = arow + 2 * ((16 * s / (4 * C)) * kXW * C + (16 * s) % (4 * C));
+      unsigned a[kPc][4];
+      uint2 b[kPc];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] += part[i];
+      for (int k = 0; k < kPc; ++k) {
+        ldsm_x4(at + 2 * k * kXwPiece, a[k]);
+        b[k] = w0f[(k * C + s) * 32 + lane];
+      }
+      if constexpr (kPc == 1) {
+        float part[4] = {};              // each k-step alone, added rounding to nearest
+        mma(part, a[0], b[0].x, b[0].y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += part[i];
+      } else {
+        mma_pairs(acc, a, b);
+      }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const bool valid = class_pos(cls, r0 + g + 8 * h, py, px);
       const int y0 = 16 * t.ty - 1 + py, x0 = 16 * t.tx - 1 + px;
       const bool in = valid && y0 >= 0 && y0 < H0 && x0 >= 0 && x0 < H0;
-      float e[2];
+      float e[2][kPc];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float a = acc[2 * h + c] + b0s[2 * q + c];
-        if constexpr (kE0) e[c] = in ? lshm::elu(a) : 0.0f;
+        if constexpr (kE0) split<kPc>(in ? lshm::elu(a) : 0.0f, e[c]);
         if constexpr (kD0) d0[j][2 * h + c] = in ? lshm::elu_grad(a) : 0.0f;
       }
       if constexpr (kE0) {
-        if (valid)
-          *reinterpret_cast<unsigned*>(e0 + (py * kT0 + px) * kF0 + 2 * q) =
-              pack(e[0], e[1]);
+        if (valid) {
+#pragma unroll
+          for (int k = 0; k < kPc; ++k)
+            *reinterpret_cast<unsigned*>(e0 + (k * kPos0 + py * kT0 + px) * kF0 + 2 * q) =
+                pack(e[0][k], e[1][k]);
+        }
       }
     }
   }
@@ -628,12 +609,14 @@ __device__ __forceinline__ size_t out1(Tile t, int H1, int row, int f1) {
   return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + f1;
 }
 
-// Stage 1 of tile t, warp = (m-tile of 16 outputs, n-tile of 8 channels): a1 without
-// b1 into acc (rows 16 mt + g, + 8; f1 8 nt + 2q, + 1), and g1 at the same places
-// into gv (0 where in1 is false).
+// Stage 1 of tile t, warp = (m-tile of 16 outputs, n-tile of 8 channels), from e0 in
+// the pieces of T (kPos0 * kF0 elements apart): a1 without b1 into acc (rows 16 mt + g,
+// + 8; f1 8 nt + 2q, + 1), and g1 at the same places into gv (0 where in1 is false).
+template <typename T>
 __device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f,
-                                          const bf16* __restrict__ g1, int H1, Tile t,
+                                          const T* __restrict__ g1, int H1, Tile t,
                                           float acc[4], float gv[2][2]) {
+  constexpr int kPc = kPiecesOf<T>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
   const int mt = warp / 2, nt = warp % 2;
 #pragma unroll
@@ -641,182 +624,95 @@ __device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f,
     const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
     gv[h][0] = gv[h][1] = 0.0f;
     if (in1(t, H1, row, f1)) {
-      const __nv_bfloat162 v =
-          *reinterpret_cast<const __nv_bfloat162*>(g1 + out1(t, H1, row, f1));
-      gv[h][0] = __low2float(v);
-      gv[h][1] = __high2float(v);
+      if constexpr (std::is_same<T, float>::value) {
+        const float2 v = *reinterpret_cast<const float2*>(g1 + out1(t, H1, row, f1));
+        gv[h][0] = v.x;
+        gv[h][1] = v.y;
+      } else {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(g1 + out1(t, H1, row, f1));
+        gv[h][0] = __low2float(v);
+        gv[h][1] = __high2float(v);
+      }
     }
   }
   const int p = 16 * mt + lane % 16;
   const unsigned arow = saddr(e0 + (2 * (p / kT1) * kT0 + 2 * (p % kT1)) * kF0);
 #pragma unroll
   for (int i = 0; i < 4; ++i) acc[i] = 0.0f;
-#pragma unroll
+  constexpr int kUnroll = kPc == 1 ? 8 : 1;     // float32: fewer registers live
+#pragma unroll (kUnroll)
   for (int s = 0; s < 8; ++s) {          // k-step s: taps 2 s (k < 8) and 2 s + 1
     const int tap = 2 * s + lane / 16;
-    unsigned a[4];
-    ldsm_x4(arow + 2 * ((tap / 4) * kT0 + tap % 4) * kF0, a);
-    const uint2 b = w1f[(nt * 8 + s) * 32 + lane];
-    mma(acc, a, b.x, b.y);
+    unsigned a[kPc][4];
+    uint2 b[kPc];
+#pragma unroll
+    for (int k = 0; k < kPc; ++k) {
+      ldsm_x4(arow + 2 * (((tap / 4) * kT0 + tap % 4) * kF0 + k * kPos0 * kF0), a[k]);
+      b[k] = w1f[(k * 16 + nt * 8 + s) * 32 + lane];
+    }
+    if constexpr (kPc == 1) {
+      mma(acc, a[0], b[0].x, b[0].y);
+    } else {
+      mma_pairs(acc, a, b);
+    }
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 2)
-head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                   const bf16* __restrict__ b0, const bf16* __restrict__ w1,
-                   const bf16* __restrict__ b1, const bf16* __restrict__ g1, int P, int tps,
-                   int ntiles, float* __restrict__ partial) {
-  using S = Smem<C>;
-  using L = Layout<C>;
-  extern __shared__ float4 smem4[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
-  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
-  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
-  bf16* dp1 = reinterpret_cast<bf16*>(sm + S::oDp1);
-  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
-  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
-  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
-  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
-  float* b1s = b0s + kF0;
-  const int H0 = P / 2, H1 = P / 4;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, q = lane % 4;
-  bf16* stg = reinterpret_cast<bf16*>(sm + S::oStg) + warp * kPieces * 16 * kF0;
-
-  if (blockIdx.x < ntiles) load_window_async<C>(x, P, decode_tile(blockIdx.x, tps), win);
-  cp_async_commit();
-  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
-  for (int i = tid; i < kPieces * kF1P; i += blockDim.x)      // the zero row of each piece
-    dp1[((i / kF1P) * kDpRows + kP1) * kF1P + i % kF1P] = __float2bfloat16_rn(0.0f);
-
-  float accW0[C][4] = {}, accW1[2][4] = {}, db0a[2] = {}, db1a[2] = {};
-
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
-    const Tile t = decode_tile(tile, tps);
-    const bf16* xw = win + buf * S::win;
-    cp_async_wait_all();
-    __syncthreads();                       // window t in; tile t - 1 done with e0, dp1
-    if (tile + (int)gridDim.x < ntiles)
-      load_window_async<C>(x, P, decode_tile(tile + gridDim.x, tps),
-                           win + (buf ^ 1) * S::win);
-    cp_async_commit();
-
-    // stage 0 on this warp's three class m-tiles: e0 to shared memory, elu'(a0) kept
-    float d0[kMtPerWarp][4];
-    stage0_tc<C, true, true>(xw, w0f, b0s, H0, t, e0, d0);
-    __syncthreads();
-
-    // stage 1, warp = (m-tile of 16 outputs, n-tile of 8 channels): dpre1 in pieces
-    {
-      const int mt = warp / 2, nt = warp % 2;
-      float acc[4], gv[2][2];
-      stage1_tc(e0, w1f, g1, H1, t, acc, gv);
+// dpre1 = g1 elu'(a1) of this warp's stage-1 outputs (stage1_tc's acc and gv) into dp1
+// in three pieces; db1 summed.  Both K4 kernels.
+__device__ __forceinline__ void store_dpre1(const float acc[4], const float gv[2][2],
+                                            const float* b1s, int warp, int g, int q,
+                                            bf16* dp1, float db1a[2]) {
+  const int mt = warp / 2, nt = warp % 2;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 16 * mt + g + 8 * h;
-        float v[2], pc[2][kPieces];
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * mt + g + 8 * h;
+    float v[2], pc[2][kPieces];
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          v[c] = gv[h][c] * lshm::elu_grad(acc[2 * h + c] + b1s[8 * nt + 2 * q + c]);
-          db1a[c] += v[c];
-          split3(v[c], pc[c]);
-        }
-#pragma unroll
-        for (int k = 0; k < kPieces; ++k)
-          *reinterpret_cast<unsigned*>(dp1 + (k * kDpRows + row) * kF1P + 8 * nt +
-                                       2 * q) = pack(pc[0][k], pc[1][k]);
-      }
+    for (int c = 0; c < 2; ++c) {
+      v[c] = gv[h][c] * lshm::elu_grad(acc[2 * h + c] + b1s[8 * nt + 2 * q + c]);
+      db1a[c] += v[c];
+      split3(v[c], pc[c]);
     }
-    __syncthreads();
-
-    // dW1 += A1^T dpre1: this warp's m-tile is taps 2 warp, 2 warp + 1 (by f0)
 #pragma unroll
-    for (int s = 0; s < kP1 / 16; ++s) {
-      const int mq = lane / 8, p = 16 * s + lane % 8 + 8 * (mq / 2);
-      const int tap = 2 * warp + mq % 2;
-      unsigned a[4];
-      ldsm_x4_t(
-          saddr(e0 + ((2 * (p / kT1) + tap / 4) * kT0 + 2 * (p % kT1) + tap % 4) * kF0), a);
-      const int pb = 16 * s + lane % 8 + 8 * (mq % 2);
-      float part[2][4] = {};
-#pragma unroll
-      for (int k = 0; k < kPieces; ++k) {
-        unsigned b[4];
-        ldsm_x4_t(saddr(dp1 + (k * kDpRows + pb) * kF1P + 8 * (mq / 2)), b);
-        mma(part[0], a, b[0], b[1]);
-        mma(part[1], a, b[2], b[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) accW1[i / 4][i % 4] += part[i / 4][i % 4];
-    }
-
-    // d e0 gathered per class m-tile, dpre0 = d e0 * elu'(a0), then dW0 += A0^T dpre0
-#pragma unroll
-    for (int j = 0; j < kMtPerWarp; ++j) {
-      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
-      const int r = r0 + lane % 16;
-      const bool valid = r < kClassPos;
-      const int qy = r / kHalf, qx = r % kHalf;
-      float acc[4] = {};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {        // slot s: ky = py % 2 + 2 (s / 2), kx likewise
-        const int oyl = qy - s / 2, oxl = qx - s % 2;
-        const int prow = valid && oyl >= 0 && oyl < kT1 && oxl >= 0 && oxl < kT1
-                             ? oyl * kT1 + oxl : kP1;
-        const int tap = ((cls >> 1) + 2 * (s / 2)) * 4 + (cls & 1) + 2 * (s % 2);
-        const uint2 b = w1g[tap * 32 + lane];
-#pragma unroll
-        for (int k = 0; k < kPieces; ++k) {
-          unsigned a[4];
-          ldsm_x4(saddr(dp1 + (k * kDpRows + prow) * kF1P + 8 * (lane / 16)), a);
-          mma(acc, a, b.x, b.y);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float pc[2][kPieces];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float v = acc[2 * h + c] * d0[j][2 * h + c];   // 0 on ring and padding
-          db0a[c] += v;
-          split3(v, pc[c]);
-        }
-#pragma unroll
-        for (int k = 0; k < kPieces; ++k)
-          *reinterpret_cast<unsigned*>(stg + (k * 16 + g + 8 * h) * kF0 + 2 * q) =
-              pack(pc[0][k], pc[1][k]);
-      }
-      __syncwarp();
-      // B: dpre0 [16 positions x 8 f0] per piece
-      unsigned b01[4], b2[2];
-      ldsm_x4_t(saddr(stg + (lane / 16) * 16 * kF0 + (lane % 16) * kF0), b01);
-      ldsm_x2_t(saddr(stg + 2 * 16 * kF0 + (lane % 16) * kF0), b2);
-      // A: the window rows of the m-tile's positions, transposed: m = (ky, kx, c)
-      int py, px;
-      class_pos(cls, r0 + lane % 8 + 8 * (lane / 16), py, px);
-      const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 8 % 2);
-#pragma unroll
-      for (int mm = 0; mm < C; ++mm) {     // m-tile mm: k = (ky, kx, c) in [16 mm, +16)
-        unsigned a[4];
-        ldsm_x4_t(arow + 2 * ((16 * mm / (4 * C)) * kXW * C + (16 * mm) % (4 * C)), a);
-        float part[4] = {};
-        mma(part, a, b01[0], b01[1]);
-        mma(part, a, b01[2], b01[3]);
-        mma(part, a, b2[0], b2[1]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) accW0[mm][i] += part[i];
-      }
-      __syncwarp();                         // stg is rewritten by the next m-tile
-    }
+    for (int k = 0; k < kPieces; ++k)
+      *reinterpret_cast<unsigned*>(dp1 + (k * kDpRows + row) * kF1P + 8 * nt + 2 * q) =
+          pack(pc[0][k], pc[1][k]);
   }
-  cp_async_wait_all();
-  __syncthreads();
+}
 
-  // this block's row of partials [dW0 | db0 | dW1 | db1], summed over warps in order
-  float* out = partial + (size_t)blockIdx.x * L::nacc;
-  float* red = reinterpret_cast<float*>(sm + S::oWin);
+// dpre0 = d e0 elu'(a0) of one class m-tile (acc the gathered d e0, d0 elu'(a0), 0 on
+// the ring and padding) into this warp's staging [3][16][8] in pieces; db0 summed.
+// Both K4 kernels.
+__device__ __forceinline__ void stage_dpre0(const float acc[4], const float d0[4],
+                                            int g, int q, bf16* stg, float db0a[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float pc[2][kPieces];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float v = acc[2 * h + c] * d0[2 * h + c];
+      db0a[c] += v;
+      split3(v, pc[c]);
+    }
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k)
+      *reinterpret_cast<unsigned*>(stg + (k * 16 + g + 8 * h) * kF0 + 2 * q) =
+          pack(pc[0][k], pc[1][k]);
+  }
+}
+
+// This block's row of partials out = [dW0 | db0 | dW1 | db1] from each warp's register
+// sums (dW0 m-tiles accW0, dW1 m-tile accW1, bias sums per lane), the warps' dW0 and bias
+// sums added in a fixed order through red (shared memory, Smem::red floats, free for it:
+// the caller syncs the block first).
+template <int C>
+__device__ __forceinline__ void write_partials(const float accW0[C][4],
+                                               const float accW1[2][4], const float db0a[2],
+                                               const float db1a[2], float* red, float* out) {
+  using L = Layout<C>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
   float* rdb0 = red + kWarps * 16 * C * kF0;
   float* rdb1 = rdb0 + kWarps * 8;
 #pragma unroll
@@ -872,6 +768,330 @@ head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   }
 }
 
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+head_bwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+                   const bf16* __restrict__ b0, const bf16* __restrict__ w1,
+                   const bf16* __restrict__ b1, const bf16* __restrict__ g1, int P, int tps,
+                   int ntiles, float* __restrict__ partial) {
+  using S = Smem<C>;
+  using L = Layout<C>;
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
+  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
+  bf16* dp1 = reinterpret_cast<bf16*>(sm + S::oDp1);
+  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
+  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
+  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
+  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
+  float* b1s = b0s + kF0;
+  const int H0 = P / 2, H1 = P / 4;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  bf16* stg = reinterpret_cast<bf16*>(sm + S::oStg) + warp * kPieces * 16 * kF0;
+
+  if (blockIdx.x < ntiles) load_window_async<C>(x, P, decode_tile(blockIdx.x, tps), win);
+  cp_async_commit();
+  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
+  for (int i = tid; i < kPieces * kF1P; i += blockDim.x)      // the zero row of each piece
+    dp1[((i / kF1P) * kDpRows + kP1) * kF1P + i % kF1P] = __float2bfloat16_rn(0.0f);
+
+  float accW0[C][4] = {}, accW1[2][4] = {}, db0a[2] = {}, db1a[2] = {};
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile t = decode_tile(tile, tps);
+    const bf16* xw = win + buf * S::win;
+    cp_async_wait_all();
+    __syncthreads();                       // window t in; tile t - 1 done with e0, dp1
+    if (tile + (int)gridDim.x < ntiles)
+      load_window_async<C>(x, P, decode_tile(tile + gridDim.x, tps),
+                           win + (buf ^ 1) * S::win);
+    cp_async_commit();
+
+    // stage 0 on this warp's three class m-tiles: e0 to shared memory, elu'(a0) kept
+    float d0[kMtPerWarp][4];
+    stage0_tc<C, bf16, true, true>(xw, w0f, b0s, H0, t, e0, d0);
+    __syncthreads();
+
+    // stage 1, warp = (m-tile of 16 outputs, n-tile of 8 channels): dpre1 in pieces
+    {
+      float acc[4], gv[2][2];
+      stage1_tc(e0, w1f, g1, H1, t, acc, gv);
+      store_dpre1(acc, gv, b1s, warp, g, q, dp1, db1a);
+    }
+    __syncthreads();
+
+    // dW1 += A1^T dpre1: this warp's m-tile is taps 2 warp, 2 warp + 1 (by f0)
+#pragma unroll
+    for (int s = 0; s < kP1 / 16; ++s) {
+      const int mq = lane / 8, p = 16 * s + lane % 8 + 8 * (mq / 2);
+      const int tap = 2 * warp + mq % 2;
+      unsigned a[4];
+      ldsm_x4_t(
+          saddr(e0 + ((2 * (p / kT1) + tap / 4) * kT0 + 2 * (p % kT1) + tap % 4) * kF0), a);
+      const int pb = 16 * s + lane % 8 + 8 * (mq % 2);
+      float part[2][4] = {};
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) {
+        unsigned b[4];
+        ldsm_x4_t(saddr(dp1 + (k * kDpRows + pb) * kF1P + 8 * (mq / 2)), b);
+        mma(part[0], a, b[0], b[1]);
+        mma(part[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) accW1[i / 4][i % 4] += part[i / 4][i % 4];
+    }
+
+    // d e0 gathered per class m-tile, dpre0 = d e0 * elu'(a0), then dW0 += A0^T dpre0
+#pragma unroll
+    for (int j = 0; j < kMtPerWarp; ++j) {
+      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
+      const int r = r0 + lane % 16;
+      const bool valid = r < kClassPos;
+      const int qy = r / kHalf, qx = r % kHalf;
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {        // slot s: ky = py % 2 + 2 (s / 2), kx likewise
+        const int oyl = qy - s / 2, oxl = qx - s % 2;
+        const int prow = valid && oyl >= 0 && oyl < kT1 && oxl >= 0 && oxl < kT1
+                             ? oyl * kT1 + oxl : kP1;
+        const int tap = ((cls >> 1) + 2 * (s / 2)) * 4 + (cls & 1) + 2 * (s % 2);
+        const uint2 b = w1g[tap * 32 + lane];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) {
+          unsigned a[4];
+          ldsm_x4(saddr(dp1 + (k * kDpRows + prow) * kF1P + 8 * (lane / 16)), a);
+          mma(acc, a, b.x, b.y);
+        }
+      }
+      stage_dpre0(acc, d0[j], g, q, stg, db0a);
+      __syncwarp();
+      // B: dpre0 [16 positions x 8 f0] per piece
+      unsigned b01[4], b2[2];
+      ldsm_x4_t(saddr(stg + (lane / 16) * 16 * kF0 + (lane % 16) * kF0), b01);
+      ldsm_x2_t(saddr(stg + 2 * 16 * kF0 + (lane % 16) * kF0), b2);
+      // A: the window rows of the m-tile's positions, transposed: m = (ky, kx, c)
+      int py, px;
+      class_pos(cls, r0 + lane % 8 + 8 * (lane / 16), py, px);
+      const unsigned arow = saddr(xw + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 8 % 2);
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {     // m-tile mm: k = (ky, kx, c) in [16 mm, +16)
+        unsigned a[4];
+        ldsm_x4_t(arow + 2 * ((16 * mm / (4 * C)) * kXW * C + (16 * mm) % (4 * C)), a);
+        float part[4] = {};
+        mma(part, a, b01[0], b01[1]);
+        mma(part, a, b01[2], b01[3]);
+        mma(part, a, b2[0], b2[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) accW0[mm][i] += part[i];
+      }
+      __syncwarp();                         // stg is rewritten by the next m-tile
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  write_partials<C>(accW0, accW1, db0a, db1a, reinterpret_cast<float*>(sm + S::oWin),
+                    partial + (size_t)blockIdx.x * L::nacc);
+}
+
+// ---- Backward, weights, float32 (K4 float32) on the tensor cores ----
+//
+// K4 bf16's kernel with every float32 operand in three bf16 pieces and each product
+// through mma_pairs; the header gives the design.
+
+template <int C>
+struct F32Smem {   // byte offsets; every array 16-byte aligned
+  static constexpr int win = kXW * kXW * C;                          // elements of a piece
+  static constexpr int oWin = 0;                                     // [3][38][38][C] bf16
+  static constexpr int oRaw = oWin + 2 * kPieces * win;              // [38][38][C] float
+  static constexpr int oE0 = oRaw + 4 * win;                         // [3][324][8] bf16
+  static constexpr int oDp1 = oE0 + 2 * kPieces * kPos0 * kF0;       // [3][65][16] bf16
+  static constexpr int oStg = oDp1 + 2 * kPieces * kDpRows * kF1P;   // [8][3][16][8] bf16
+  static constexpr int oW0f = oStg + 2 * kWarps * kPieces * 16 * kF0;  // [3][C][32] uint2
+  static constexpr int oW1f = oW0f + 8 * kPieces * C * 32;           // [3][2][8][32] uint2
+  static constexpr int oW1g = oW1f + 8 * kPieces * 16 * 32;          // [3][16][32] uint2
+  static constexpr int oBias = oW1g + 8 * kPieces * 16 * 32;         // b0 [8], b1 [16]
+  static constexpr int bytes = oBias + 4 * (kF0 + kF1P);
+  // resident blocks per SM: two at C = 4 (113,440 bytes each, plus the 1 KB the runtime
+  // keeps per block, within the SM's 228 KB), one at C = 8
+  static constexpr int per_sm = C == 4 ? 2 : 1;
+  static_assert(per_sm * (bytes + 1024) <= 228 * 1024, "blocks per SM fit");
+  static_assert(4 * Smem<C>::red <= oRaw, "reduction scratch fits in the window pieces");
+  static_assert(oRaw % 16 == 0 && oE0 % 16 == 0 && oDp1 % 16 == 0 && oStg % 16 == 0 &&
+                oW0f % 16 == 0 && (2 * win) % 16 == 0, "16-byte aligned rows");
+};
+
+// The float32 window of tile t into raw, asynchronously, 16 bytes a copy, zeros outside
+// the image.  Chunk i (floats 4 i .. 4 i + 3) is copied by thread i mod blockDim.x.
+template <int C>
+__device__ void load_window_f32_async(const float* __restrict__ x, int P, Tile t,
+                                      float* raw) {
+  const int iy0 = 32 * t.ty - 3, ix0 = 32 * t.tx - 3;
+  for (int i = threadIdx.x; i < kXW * kXW * C / 4; i += blockDim.x) {
+    const int pix = i / (C / 4);
+    const int iy = iy0 + pix / kXW, ix = ix0 + pix % kXW;
+    const bool in = iy >= 0 && iy < P && ix >= 0 && ix < P;
+    const float* src =
+        in ? x + (((size_t)t.n * P + iy) * P + ix) * C + 4 * (i % (C / 4)) : x;
+    cp_async<16>(saddr(raw + 4 * i), src, in ? 16 : 0);
+  }
+}
+
+// The chunks of raw that this thread copied (its own cp.async writes are visible to it
+// after the wait) into three exact bf16 pieces, win[k][.] for k = 0, 1, 2.
+template <int C>
+__device__ void split_window(const float* raw, bf16* win) {
+  for (int i = threadIdx.x; i < kXW * kXW * C / 4; i += blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(raw)[i];
+    float pc[4][kPieces];
+    split3(v.x, pc[0]);
+    split3(v.y, pc[1]);
+    split3(v.z, pc[2]);
+    split3(v.w, pc[3]);
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k)
+      *reinterpret_cast<uint2*>(win + k * kXW * kXW * C + 4 * i) =
+          make_uint2(pack(pc[0][k], pc[1][k]), pack(pc[2][k], pc[3][k]));
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, F32Smem<C>::per_sm)
+head_bwd_f32_tc_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+                       const float* __restrict__ b0, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ g1, int P,
+                       int tps, int ntiles, float* __restrict__ partial) {
+  using S = F32Smem<C>;
+  using L = Layout<C>;
+  constexpr int kWinPiece = kXW * kXW * C, kE0Piece = kPos0 * kF0;   // elements
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
+  float* raw = reinterpret_cast<float*>(sm + S::oRaw);
+  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
+  bf16* dp1 = reinterpret_cast<bf16*>(sm + S::oDp1);
+  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
+  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
+  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
+  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
+  float* b1s = b0s + kF0;
+  const int H0 = P / 2, H1 = P / 4;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  bf16* stg = reinterpret_cast<bf16*>(sm + S::oStg) + warp * kPieces * 16 * kF0;
+
+  if (blockIdx.x < ntiles) load_window_f32_async<C>(x, P, decode_tile(blockIdx.x, tps), raw);
+  cp_async_commit();
+  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
+  for (int i = tid; i < kPieces * kF1P; i += blockDim.x)      // the zero row of each piece
+    dp1[((i / kF1P) * kDpRows + kP1) * kF1P + i % kF1P] = __float2bfloat16_rn(0.0f);
+
+  float accW0[C][4] = {}, accW1[2][4] = {}, db0a[2] = {}, db1a[2] = {};
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const Tile t = decode_tile(tile, tps);
+    cp_async_wait_all();
+    __syncthreads();                       // tile t - 1 done with the window, e0, dp1
+    split_window<C>(raw, win);             // its own copies: visible after its wait
+    __syncthreads();                       // the window's pieces in; raw free
+    if (tile + (int)gridDim.x < ntiles)
+      load_window_f32_async<C>(x, P, decode_tile(tile + gridDim.x, tps), raw);
+    cp_async_commit();
+
+    // stage 0 on this warp's three class m-tiles: e0 in pieces, elu'(a0) kept
+    float d0[kMtPerWarp][4];
+    stage0_tc<C, float, true, true>(win, w0f, b0s, H0, t, e0, d0);
+    __syncthreads();
+
+    // stage 1, warp = (m-tile of 16 outputs, n-tile of 8 channels): dpre1 in pieces
+    {
+      float acc[4], gv[2][2];
+      stage1_tc(e0, w1f, g1, H1, t, acc, gv);
+      store_dpre1(acc, gv, b1s, warp, g, q, dp1, db1a);
+    }
+    __syncthreads();
+
+    // dW1 += A1^T dpre1: this warp's m-tile is taps 2 warp, 2 warp + 1 (by f0)
+#pragma unroll
+    for (int s = 0; s < kP1 / 16; ++s) {
+      const int mq = lane / 8, p = 16 * s + lane % 8 + 8 * (mq / 2);
+      const int tap = 2 * warp + mq % 2;
+      const unsigned ae =
+          saddr(e0 + ((2 * (p / kT1) + tap / 4) * kT0 + 2 * (p % kT1) + tap % 4) * kF0);
+      const unsigned bd = saddr(dp1 + (16 * s + lane % 16) * kF1P);
+      unsigned a[kPieces][4];
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) ldsm_x4_t(ae + 2 * k * kE0Piece, a[k]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {        // B per n-tile: fewer registers live
+        uint2 b[kPieces];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) {
+          unsigned r[2];
+          ldsm_x2_t(bd + 2 * (k * kDpRows * kF1P + 8 * n), r);
+          b[k] = make_uint2(r[0], r[1]);
+        }
+        mma_pairs(accW1[n], a, b);
+      }
+    }
+
+    // d e0 gathered per class m-tile, dpre0 = d e0 * elu'(a0), then dW0 += A0^T dpre0
+#pragma unroll
+    for (int j = 0; j < kMtPerWarp; ++j) {
+      const int mt = warp + kWarps * j, cls = mt / kClassTiles, r0 = mt % kClassTiles * 16;
+      const int r = r0 + lane % 16;
+      const bool valid = r < kClassPos;
+      const int qy = r / kHalf, qx = r % kHalf;
+      float acc[4] = {};
+#pragma unroll 1                           // fewer registers live
+      for (int s = 0; s < 4; ++s) {        // slot s: ky = py % 2 + 2 (s / 2), kx likewise
+        const int oyl = qy - s / 2, oxl = qx - s % 2;
+        const int prow = valid && oyl >= 0 && oyl < kT1 && oxl >= 0 && oxl < kT1
+                             ? oyl * kT1 + oxl : kP1;
+        const int tap = ((cls >> 1) + 2 * (s / 2)) * 4 + (cls & 1) + 2 * (s % 2);
+        unsigned a[kPieces][4];
+        uint2 b[kPieces];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) {
+          ldsm_x4(saddr(dp1 + (k * kDpRows + prow) * kF1P + 8 * (lane / 16)), a[k]);
+          b[k] = w1g[(k * 16 + tap) * 32 + lane];
+        }
+        mma_pairs(acc, a, b);
+      }
+      stage_dpre0(acc, d0[j], g, q, stg, db0a);
+      __syncwarp();
+      // B: dpre0 [16 positions x 8 f0] per piece
+      unsigned b01[4], b2[2];
+      ldsm_x4_t(saddr(stg + (lane / 16) * 16 * kF0 + (lane % 16) * kF0), b01);
+      ldsm_x2_t(saddr(stg + 2 * 16 * kF0 + (lane % 16) * kF0), b2);
+      const uint2 b[kPieces] = {make_uint2(b01[0], b01[1]), make_uint2(b01[2], b01[3]),
+                                make_uint2(b2[0], b2[1])};
+      // A: the window rows of the m-tile's positions, transposed: m = (ky, kx, c)
+      int py, px;
+      class_pos(cls, r0 + lane % 8 + 8 * (lane / 16), py, px);
+      const unsigned arow = saddr(win + (2 * py * kXW + 2 * px) * C) + 16 * (lane / 8 % 2);
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {     // m-tile mm: k = (ky, kx, c) in [16 mm, +16)
+        const unsigned at =
+            arow + 2 * ((16 * mm / (4 * C)) * kXW * C + (16 * mm) % (4 * C));
+        unsigned a[kPieces][4];
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k) ldsm_x4_t(at + 2 * k * kWinPiece, a[k]);
+        mma_pairs(accW0[mm], a, b);
+      }
+      __syncwarp();                         // stg is rewritten by the next m-tile
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  write_partials<C>(accW0, accW1, db0a, db1a, reinterpret_cast<float*>(sm + S::oWin),
+                    partial + (size_t)blockIdx.x * L::nacc);
+}
+
 // ---- Backward, input, bfloat16 (K5 bf16) on the tensor cores, in two passes ----
 
 // resident blocks per SM of each pass: pass 1 fits three (72 registers at C = 4), pass 2
@@ -916,7 +1136,7 @@ dpre1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
       load_window_async<C>(x, P, decode_tile(tile + gridDim.x, tps),
                            win + (buf ^ 1) * S::win);
     cp_async_commit();
-    stage0_tc<C, true, false>(win + buf * S::win, w0f, b0s, H0, t, e0, nullptr);
+    stage0_tc<C, bf16, true, false>(win + buf * S::win, w0f, b0s, H0, t, e0, nullptr);
     __syncthreads();
     float acc[4], gv[2][2];
     stage1_tc(e0, w1f, g1, H1, t, acc, gv);
@@ -936,7 +1156,6 @@ dpre1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 // stage-0 halo tile is K4's 18 x 18, and the dpre1 that reaches it a 10 x 10 halo
 // (halo position qy <-> stage-1 row 8 ty - 1 + qy).
 constexpr int kHalo = kTD * kTD;           // 100 dpre1 positions
-constexpr int kPos0 = kT0 * kT0;           // 324 stage-0 positions
 constexpr int kDxTiles = 4 * (kTX / 2);    // 64 dx m-tiles: 4 parity classes x 16 rows
 static_assert(kDxTiles % kWarps == 0, "dx m-tiles per warp");
 
@@ -1054,7 +1273,7 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     }
     // stage 0 on this warp's three class m-tiles: elu'(a0) kept
     float d0[kMtPerWarp][4];
-    stage0_tc<C, false, true>(win + buf * S::win, w0f, b0s, H0, t, nullptr, d0);
+    stage0_tc<C, bf16, false, true>(win + buf * S::win, w0f, b0s, H0, t, nullptr, d0);
     __syncthreads();
 
     // d e0 per class m-tile: four tap slots, the A rows dpre1 halo rows picked by
@@ -1239,8 +1458,9 @@ int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T*
   return (int)cudaGetLastError();
 }
 
-// float32: head_bwd_kernel on the CUDA cores; bfloat16: tc::head_bwd_tc_kernel on the
-// tensor cores.  Both write one row of partials per block, added in a fixed order.
+// Both dtypes on the tensor cores: float32 tc::head_bwd_f32_tc_kernel, bfloat16
+// tc::head_bwd_tc_kernel.  Each writes one row of partials per block, added in a fixed
+// order.
 template <typename T, int C>
 int bwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1, int B,
         int P, float* partial, float* grads, cudaStream_t stream) {
@@ -1249,10 +1469,11 @@ int bwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T*
   const int ntiles = B * tps * tps;
   const int nblk = ntiles < kBwdBlocks ? ntiles : kBwdBlocks;
   if constexpr (std::is_same<T, float>::value) {
-    cudaError_t err = lshm::allow_smem(head_bwd_kernel<T, C>, L::bwd_bytes);
+    constexpr int bytes = tc::F32Smem<C>::bytes;
+    cudaError_t err = lshm::allow_smem(tc::head_bwd_f32_tc_kernel<C>, bytes);
     if (err != cudaSuccess) return (int)err;
-    head_bwd_kernel<T, C><<<nblk, kThreads, L::bwd_bytes, stream>>>(x, w0, b0, w1, b1, g1,
-                                                                   P, tps, ntiles, partial);
+    tc::head_bwd_f32_tc_kernel<C><<<nblk, kThreads, bytes, stream>>>(x, w0, b0, w1, b1, g1,
+                                                                     P, tps, ntiles, partial);
   } else {
     constexpr int bytes = tc::Smem<C>::bytes;
     cudaError_t err = lshm::allow_smem(tc::head_bwd_tc_kernel<C>, bytes);

@@ -33,7 +33,7 @@ import torch
 ADMM_ITERS = 10                 # the full_khm preset's
 CATEGORIES = (   # (category, substrings of the kernel name), first match wins
     ("port kernels", ("khm_fwd_kernel", "khm_bwd_kernel", "head_fwd_kernel",
-                      "head_bwd_kernel", "reduce_partials_kernel")),
+                      "head_bwd_", "reduce_partials_kernel")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop",
                      "winograd", "fft")),
     ("matrix product", ("gemm", "gemv", "cutlass", "dot")),

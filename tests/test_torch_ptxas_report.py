@@ -1,7 +1,7 @@
 """``lshm_tpu_torch.tools.ptxas_report``'s reading of a ``-Xptxas -v`` log (the tool
 itself needs ``nvcc``; its parser does not)."""
 
-from lshm_tpu_torch.tools.ptxas_report import parse, short_name
+from lshm_tpu_torch.tools.ptxas_report import parse, sass_digests, short_name
 
 K8 = "_ZN2tc17head_dx_tc_kernelILi8EEEvPKfi"
 K4 = "_ZN2tc17head_dx_tc_kernelILi4EEEvPKfi"
@@ -38,3 +38,34 @@ def test_short_name_drops_namespace_and_parameters():
     assert short_name(full) == "tc::head_dx_tc_kernel<4>"
     assert short_name("head_fwd_kernel<float, 4, true>(float const*)") == \
         "head_fwd_kernel<float, 4, true>"
+
+
+SASS = f"""
+Fatbin elf code:
+================
+arch = sm_90a
+\t\tFunction : {K8}
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   EXIT ;                          /* 0x000000000000794d */
+\t\t..........
+
+\t\tFunction : {K4}
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   EXIT ;                          /* 0x000000000000794d */
+\t\t..........
+
+\t\tFunction : {DEV}
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   RET.ABS.NODEC R20 0x0 ;         /* 0x0000000014007950 */
+\t\t..........
+"""
+
+
+def test_sass_digests_key_each_function_by_its_code():
+    d = sass_digests(SASS)
+    assert set(d) == {K8, K4, DEV}
+    assert d[K8] == d[K4] != d[DEV]             # same instructions, same digest
+    assert all(len(v) == 16 for v in d.values())
+    assert sass_digests(SASS.replace("EXIT", "BRA"))[K8] != d[K8]
