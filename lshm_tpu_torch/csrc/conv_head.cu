@@ -10,12 +10,11 @@
 // C is 4 or 8 (template), F0 = 8 and F1 = 12 (the ladder's first two widths).
 //
 // Storage type T (template) of x, the weights, the biases, g1 and the output (dx for
-// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  In K3 everything inside
-// is float32: the window and the weights are widened in shared memory, so bf16 products
-// are exact and every sum is a float32 sum in the same (ky, kx, c) order as the float
-// kernel; bf16 K4 and K5 keep them bf16 and sum on the tensor cores, and float32 K4
-// sums there too, with each float32 operand in three bf16 pieces (below).  In bf16,
-// as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
+// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  K3, K4 and bf16 K5 sum
+// on the tensor cores: bf16 operands stay bf16 (their products are exact in a float32
+// sum), and float32 operands go in as three bf16 pieces each (below).  float32 K5 runs
+// on the CUDA cores, the window and weights widened to float32 in shared memory.  In
+// bf16, as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
 // (the TPU kernel stores it in x's dtype), stage 1 sums over the rounded e0, and the
 // output is rounded to bf16; K4 and K5 take elu' of the unrounded float a0, K4 sums dW1
 // over the rounded e0 and dW0 over x's bf16 values and returns float32 sums (the
@@ -24,14 +23,35 @@
 //
 // Tiling: one tile = one sample's 8 x 8 block of stage-1 outputs.  It needs an 18 x 18
 // block of stage-0 outputs (the tile plus a 1-pixel halo at stride 2), which needs a
-// 38 x 38 input window.  A block stages the window (23 KB for C = 4) and the weights
-// (2,048 floats) in shared memory, computes the 18 x 18 x F0 stage-0 tile into
-// shared memory, and then the 8 x 8 x F1 outputs: the stage-0 activation never goes
-// to device memory.  Stage-0 positions outside the image are conv1's zero padding and
-// are stored as 0, not elu(b0) — the TPU kernel zeroes the same borders.  The TPU
+// 38 x 38 input window.  A block stages the window and the weights in shared memory,
+// computes the 18 x 18 x F0 stage-0 tile into shared memory, and then the 8 x 8 x F1
+// outputs: the stage-0 activation never goes to device memory.  Stage-0 positions
+// outside the image are conv1's zero padding and are stored as 0, not elu(b0) — the
+// TPU kernel zeroes the same borders.  The TPU
 // kernel's double space-to-depth packing only worked around Mosaic's missing strided
 // slices and is not needed here: the block reads the strided taps directly.  The
 // stage-0 helpers are in common.cuh, shared with the standalone stage (conv0.cu).
+//
+// Forward (K3, tc::head_fwd_tc_kernel): K4's stage 0 (e0 only) and stage 1, the
+// tensor-core products described below, on a fixed grid of blocks walking the tiles
+// with the next tile's window in flight (cp.async).  Per tile: stage 0 writes e0 to
+// shared memory (rounded to bf16 in bf16, in three pieces in float32), one block-wide
+// sync, stage 1 leaves a1 in registers, and out = elu(a1 + b1) is rounded to T and
+// stored where the output lies inside the image (F1 is padded to 16; channels 12 .. 15
+// are never stored).  The weight fragments are loaded once per block.  bf16: two bf16
+// windows (one per buffer), 160 products a tile at C = 4; shared memory 33,504 bytes at
+// C = 4 and 57,632 at C = 8, three blocks of 256 threads per SM (ptxas: 71 and 80
+// registers, no spills; a fourth block at C = 4 would cap them at 64 and, tried on the
+// card, ran no faster).  float32: every operand in three pieces and six piece pairs
+// per product, 960 products a tile; the window arrives as float32 in one raw buffer
+// that each thread splits, as in float32 K4, so a tile takes three block-wide syncs;
+// shared memory 88,768 bytes at C = 4 (pieces 34,656, raw window 23,104, e0 15,552,
+// fragments 15,360) and 149,600 at C = 8, two and one blocks per SM (64 and 67
+// registers, no spills; unrolling its k-step loops, tried on the card, gained nothing).
+// The tensor cores sum a0 in another order than the plain version, so in bf16 an e0
+// near a bf16 tie may round the other way and move an output by one ulp: about 1e-4 to
+// 2e-4 of the outputs differ (tests/test_torch_head_fwd_tc.py emulates it; chip_smoke.py
+// gates the share at 5e-4 and the distance from the head in float64).
 //
 // Backward, weights (K4): a fixed grid of blocks walks the tiles in a fixed order.
 // Per tile it recomputes both stages, forms dpre1 = g1 * elu'(a1), accumulates dW1
@@ -93,8 +113,8 @@
 // (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
 // two runs are bit-identical:
 //   1. dpre1 = g1 * elu'(a1) [B, P/4, P/4, F1] to device memory, float32 in either
-//      storage type (20.6 MB at B = 420).  float32: the forward kernel with another
-//      epilogue (head_fwd_kernel<float, C, true>).
+//      storage type (20.6 MB at B = 420).  float32: head_dpre1_kernel, one block per
+//      tile, both stages on the CUDA cores.
 //   2. Per 32 x 32 input tile.  Its inputs reach stage-0 positions of the same
 //      18 x 18 halo tile as the forward's, which reach a 10 x 10 tile of dpre1.
 //      float32 (head_dx_kernel, one block per tile, CUDA cores): the block stages the
@@ -124,9 +144,10 @@
 //      bf16 and staged so that whole pixels leave in 16-byte stores.
 //
 // Bound on the H100 at the main path's shapes (B=420, P=128, C=4), float32: the
-// forward reads 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP
-// (46 us at 67 TFLOP/s FP32 without tensor cores), so it is bound by operations; the
-// weight backward reads 130.7 MB and does 7.5 GFLOP, which take 45 us on the tensor
+// forward reads 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP,
+// which take 19 us on the tensor cores at float32's accuracy (six bf16 piece pairs
+// each, 18.5 GFLOP at 989 TFLOP/s; 46 us on the FP32 units), so it is bound by bytes;
+// the weight backward reads 130.7 MB and does 7.5 GFLOP, which take 45 us on the tensor
 // cores at float32's accuracy (six bf16 piece pairs each, 44.9 GFLOP at 989 TFLOP/s;
 // 112 us on the FP32 units), bound by operations; the input backward moves 240.8 MB
 // (72 us) and does 6.17 GFLOP (92 us), bound by operations.  bfloat16: the forward and
@@ -136,12 +157,18 @@
 // the input backward must move 120.4 MB (x and dx 55.05 MB each, g1: 35.9 us) against
 // 6.2 us of operations, bound by bytes, and its two passes move 216.8 MB (x twice, the
 // float32 dpre1 written and read; 65 us).
-// K3 and float32 K5 run on the CUDA cores, whose float32 arithmetic binds them.  float32
-// K4 runs 2,496 tensor-core products a tile at C = 4 (with the six pairs and the padding
-// 68.7 GFLOP, 69 us at 989 TFLOP/s) and moves its 130.7 MB once (39 us); like bf16 K4
-// it is bound by what is left on the CUDA cores, and has more of it: four block-wide
-// syncs a tile, 8,368 float32 values split a tile (the window's 5,776, e0's 2,592),
-// about twice bf16 K4's ldmatrix traffic.  bf16 K4 runs 928 tensor-core products a
+// K3 runs 160 tensor-core products a tile in bf16 and 960 in float32 at C = 4 (with the
+// padding 4.4 and 26.4 GFLOP: 4.5 and 27 us at 989 TFLOP/s), so what binds it lies
+// elsewhere.  Its tiles move 140 KB (bf16) and 465 KB (float32) through shared memory
+// (the windows' copies and splits, the ldmatrix and fragment loads, e0): at 128 bytes a
+// clock and 1.98 GHz, with 51 tiles per SM, 28 and 94 us before bank conflicts, which
+// stage 0's and stage 1's ldmatrix rows (32 bytes apart) make two-way; an estimate, not
+// a measurement.  float32 K5 runs on the CUDA cores, whose float32 arithmetic binds it.
+// float32 K4 runs 2,496 tensor-core products a tile at C = 4 (with the six pairs and the
+// padding 68.7 GFLOP, 69 us at 989 TFLOP/s) and moves its 130.7 MB once (39 us); like
+// bf16 K4 it is bound by what is left on the CUDA cores, and has more of it: four
+// block-wide syncs a tile, 8,368 float32 values split a tile (the window's 5,776, e0's
+// 2,592), about twice bf16 K4's ldmatrix traffic.  bf16 K4 runs 928 tensor-core products a
 // tile at C = 4 (with the pieces and the padding 25.5 GFLOP, 26 us at 989 TFLOP/s) and
 // moves its 65.4 MB once (19.5 us); what is left on the CUDA cores binds it: three
 // block-wide syncs a tile, the exps of elu(a0), elu'(a0) and elu'(a1), the piece splits
@@ -277,17 +304,14 @@ __device__ __forceinline__ size_t out_index(Tile t, int H1) {
   return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + grp * kPerGroup;
 }
 
-// The forward kernel's output type: T for K3, float for the dpre1 pass of K5.
-template <typename T, bool kDpre1>
-using OutT = typename std::conditional<kDpre1, float, T>::type;
-
-// kDpre1 = false: out = elu(a1) rounded to T (K3).  kDpre1 = true: out = g1 * elu'(a1)
-// in float32, the first pass of the input backward (K5).
-template <typename T, int C, bool kDpre1>
+// The first pass of float32 K5: dpre1 = g1 * elu'(a1) in float32, both stages on the
+// CUDA cores (one block per tile).
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
-                const T* __restrict__ w1, const T* __restrict__ b1,
-                const T* __restrict__ g1, int P, int tps, OutT<T, kDpre1>* __restrict__ out) {
+head_dpre1_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+                  const float* __restrict__ b0, const float* __restrict__ w1,
+                  const float* __restrict__ b1, const float* __restrict__ g1, int P,
+                  int tps, float* __restrict__ out) {
   using L = Layout<C>;
   extern __shared__ float4 smem4[];
   float* xw = reinterpret_cast<float*>(smem4);
@@ -300,19 +324,13 @@ head_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __re
   load_weights<C>(w0, b0, w1, b1, w0s, b0s, w1s, b1s);
   load_window<C>(x, P, t, xw);
   __syncthreads();
-  stage0<C, T>(xw, w0s, b0s, P / 2, t, e0, nullptr);
+  stage0<C, float>(xw, w0s, b0s, P / 2, t, e0, nullptr);
   __syncthreads();
   float a1[kPerGroup];
   if (stage1(e0, w1s, b1s, P / 4, t, a1)) {
     const size_t o = out_index(t, P / 4);
 #pragma unroll
-    for (int j = 0; j < kPerGroup; ++j) {
-      if constexpr (kDpre1) {
-        out[o + j] = lshm::to_f32(g1[o + j]) * lshm::elu_grad(a1[j]);
-      } else {
-        out[o + j] = lshm::from_f32<T>(lshm::elu(a1[j]));
-      }
-    }
+    for (int j = 0; j < kPerGroup; ++j) out[o + j] = g1[o + j] * lshm::elu_grad(a1[j]);
   }
 }
 
@@ -611,31 +629,12 @@ __device__ __forceinline__ size_t out1(Tile t, int H1, int row, int f1) {
 
 // Stage 1 of tile t, warp = (m-tile of 16 outputs, n-tile of 8 channels), from e0 in
 // the pieces of T (kPos0 * kF0 elements apart): a1 without b1 into acc (rows 16 mt + g,
-// + 8; f1 8 nt + 2q, + 1), and g1 at the same places into gv (0 where in1 is false).
+// + 8; f1 8 nt + 2q, + 1).
 template <typename T>
-__device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f,
-                                          const T* __restrict__ g1, int H1, Tile t,
-                                          float acc[4], float gv[2][2]) {
+__device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f, float acc[4]) {
   constexpr int kPc = kPiecesOf<T>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int mt = warp / 2, nt = warp % 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {          // g1 early: its latency hides behind the mma
-    const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
-    gv[h][0] = gv[h][1] = 0.0f;
-    if (in1(t, H1, row, f1)) {
-      if constexpr (std::is_same<T, float>::value) {
-        const float2 v = *reinterpret_cast<const float2*>(g1 + out1(t, H1, row, f1));
-        gv[h][0] = v.x;
-        gv[h][1] = v.y;
-      } else {
-        const __nv_bfloat162 v =
-            *reinterpret_cast<const __nv_bfloat162*>(g1 + out1(t, H1, row, f1));
-        gv[h][0] = __low2float(v);
-        gv[h][1] = __high2float(v);
-      }
-    }
-  }
   const int p = 16 * mt + lane % 16;
   const unsigned arow = saddr(e0 + (2 * (p / kT1) * kT0 + 2 * (p % kT1)) * kF0);
 #pragma unroll
@@ -657,6 +656,33 @@ __device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f,
       mma_pairs(acc, a, b);
     }
   }
+}
+
+// The same, and g1 at the same places into gv (0 where in1 is false): K4 and K5.
+template <typename T>
+__device__ __forceinline__ void stage1_tc(const bf16* e0, const uint2* w1f,
+                                          const T* __restrict__ g1, int H1, Tile t,
+                                          float acc[4], float gv[2][2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int mt = warp / 2, nt = warp % 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {          // g1 early: its latency hides behind the mma
+    const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
+    gv[h][0] = gv[h][1] = 0.0f;
+    if (in1(t, H1, row, f1)) {
+      if constexpr (std::is_same<T, float>::value) {
+        const float2 v = *reinterpret_cast<const float2*>(g1 + out1(t, H1, row, f1));
+        gv[h][0] = v.x;
+        gv[h][1] = v.y;
+      } else {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(g1 + out1(t, H1, row, f1));
+        gv[h][0] = __low2float(v);
+        gv[h][1] = __high2float(v);
+      }
+    }
+  }
+  stage1_tc<T>(e0, w1f, acc);
 }
 
 // dpre1 = g1 elu'(a1) of this warp's stage-1 outputs (stage1_tc's acc and gv) into dp1
@@ -1092,12 +1118,112 @@ head_bwd_f32_tc_kernel(const float* __restrict__ x, const float* __restrict__ w0
                     partial + (size_t)blockIdx.x * L::nacc);
 }
 
+// ---- Forward (K3) on the tensor cores, both dtypes ----
+//
+// K4's stage 0 (e0 only) and stage 1 on a fixed grid walking the tiles, the next tile's
+// window in flight; out = elu(a1 + b1) rounded to T.  The header gives the design.
+
+constexpr int kSMs = 132;                  // the H100's: the fixed grids fill every SM
+// resident blocks per SM of the bf16 forward: three (ptxas: 71 and 80 registers at C =
+// 4 and 8, within the 80 that three blocks of 256 threads allow, no spills)
+constexpr int kFwdBf16PerSM = 3;
+
+template <int C, typename T>
+struct FwdSmem {   // byte offsets; every array 16-byte aligned
+  static constexpr int kPc = kPiecesOf<T>;
+  static constexpr int win = kXW * kXW * C;                    // elements of a window piece
+  // bf16: two windows [2][38][38][C], the next tile's arriving in the other; float32:
+  // the pieces [3][38][38][C] and one raw float32 window that the next tile's arrives in
+  static constexpr int oWin = 0;
+  static constexpr int oRaw = oWin + 2 * (kPc == 1 ? 2 : kPieces) * win;
+  static constexpr int oE0 = oRaw + (kPc == 1 ? 0 : 4 * win);  // [kPc][324][8] bf16
+  static constexpr int oW0f = oE0 + 2 * kPc * kPos0 * kF0;     // [kPc][C][32] uint2
+  static constexpr int oW1f = oW0f + 8 * kPc * C * 32;         // [kPc][2][8][32] uint2
+  static constexpr int oBias = oW1f + 8 * kPc * 16 * 32;       // b0 [8], b1 [16]
+  static constexpr int bytes = oBias + 4 * (kF0 + kF1P);
+  static constexpr int per_sm = kPc == 1 ? kFwdBf16PerSM : C == 4 ? 2 : 1;
+  static_assert(per_sm * (bytes + 1024) <= 228 * 1024, "blocks per SM fit");
+  static_assert(2 * kPc * kPos0 * kF0 >= 8 * kPc * 16 * 32, "the gather's fragments in e0");
+  static_assert(oRaw % 16 == 0 && oE0 % 16 == 0 && oW0f % 16 == 0 && (2 * win) % 16 == 0,
+                "16-byte aligned rows for cp.async and ldmatrix");
+};
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads, FwdSmem<C, T>::per_sm)
+head_fwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ w0,
+                   const T* __restrict__ b0, const T* __restrict__ w1,
+                   const T* __restrict__ b1, int P, int tps, int ntiles,
+                   T* __restrict__ out) {
+  using S = FwdSmem<C, T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
+  float* raw = reinterpret_cast<float*>(sm + S::oRaw);
+  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
+  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
+  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
+  // load_fragments also writes the d e0 gather's fragments, which the forward never
+  // reads: they go to e0's space, which the first tile writes only after a block-wide sync
+  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oE0);
+  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
+  float* b1s = b0s + kF0;
+  const int H0 = P / 2, H1 = P / 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const int mt = warp / 2, nt = warp % 2;
+
+  auto load = [&](int tile, int buf) {     // tile's window into the buffer that takes it
+    const Tile t = decode_tile(tile, tps);
+    if constexpr (kF32) {
+      load_window_f32_async<C>(x, P, t, raw);
+    } else {
+      load_window_async<C>(x, P, t, win + buf * S::win);
+    }
+  };
+  if (blockIdx.x < ntiles) load(blockIdx.x, 0);
+  cp_async_commit();
+  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+    const Tile t = decode_tile(tile, tps);
+    cp_async_wait_all();
+    __syncthreads();                       // window t in; tile t - 1 done with it and e0
+    if constexpr (kF32) {
+      split_window<C>(raw, win);           // its own copies: visible after its wait
+      __syncthreads();                     // the window's pieces in; raw free
+    }
+    if (tile + (int)gridDim.x < ntiles) load(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    stage0_tc<C, T, true, false>(kF32 ? win : win + buf * S::win, w0f, b0s, H0, t, e0,
+                                 nullptr);
+    __syncthreads();
+    float acc[4];
+    stage1_tc<T>(e0, w1f, acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
+      if (in1(t, H1, row, f1))
+        store_pair(out + out1(t, H1, row, f1), lshm::elu(acc[2 * h] + b1s[f1]),
+                   lshm::elu(acc[2 * h + 1] + b1s[f1 + 1]));
+    }
+  }
+  cp_async_wait_all();
+}
+
 // ---- Backward, input, bfloat16 (K5 bf16) on the tensor cores, in two passes ----
 
 // resident blocks per SM of each pass: pass 1 fits three (72 registers at C = 4), pass 2
 // two (125; three blocks of 256 threads would cap it at 80 and force spills); the grids
 // hold that many on the H100's SMs
-constexpr int kSMs = 132;
 constexpr int kDpre1PerSM = 3, kDxPerSM = 2;
 
 // Pass 1: dpre1 = g1 * elu'(a1) in float32 to device memory; K4 bf16's tiles and their
@@ -1446,15 +1572,19 @@ head_dx_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __res
 
 int tiles_per_side(int P) { return (P / 4 + kT1 - 1) / kT1; }
 
-template <typename T, int C, bool kDpre1>
-int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1, int B,
-        int P, OutT<T, kDpre1>* out, cudaStream_t stream) {
-  using L = Layout<C>;
-  cudaError_t err = lshm::allow_smem(head_fwd_kernel<T, C, kDpre1>, L::fwd_bytes);
-  if (err != cudaSuccess) return (int)err;
+// K3 in both dtypes on the tensor cores: a fixed grid of per_sm blocks on each SM
+// walking the tiles
+template <typename T, int C>
+int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, int B, int P,
+        T* out, cudaStream_t stream) {
+  using S = tc::FwdSmem<C, T>;
   const int tps = tiles_per_side(P);
-  head_fwd_kernel<T, C, kDpre1><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(
-      x, w0, b0, w1, b1, g1, P, tps, out);
+  const int ntiles = B * tps * tps;
+  const int nblk = ntiles < S::per_sm * tc::kSMs ? ntiles : S::per_sm * tc::kSMs;
+  cudaError_t err = lshm::allow_smem(tc::head_fwd_tc_kernel<C, T>, S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  tc::head_fwd_tc_kernel<C, T><<<nblk, kThreads, S::bytes, stream>>>(x, w0, b0, w1, b1, P,
+                                                                     tps, ntiles, out);
   return (int)cudaGetLastError();
 }
 
@@ -1489,11 +1619,15 @@ template <typename T, int C>
 int dx_pass(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1,
             int B, int P, float* dpre1, T* dx, cudaStream_t stream) {
   using L = Layout<C>;
-  const int first = fwd<T, C, true>(x, w0, b0, w1, b1, g1, B, P, dpre1, stream);
-  if (first != 0) return first;
-  cudaError_t err = lshm::allow_smem(head_dx_kernel<T, C>, L::dx_bytes);
-  if (err != cudaSuccess) return (int)err;
   const int tps = tiles_per_side(P);
+  cudaError_t err = lshm::allow_smem(head_dpre1_kernel<C>, L::fwd_bytes);
+  if (err != cudaSuccess) return (int)err;
+  head_dpre1_kernel<C><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(
+      x, w0, b0, w1, b1, g1, P, tps, dpre1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = lshm::allow_smem(head_dx_kernel<T, C>, L::dx_bytes);
+  if (err != cudaSuccess) return (int)err;
   head_dx_kernel<T, C><<<B * tps * tps, kThreads, L::dx_bytes, stream>>>(
       x, w0, b0, w1, b1, dpre1, P, tps, dx);
   return (int)cudaGetLastError();
@@ -1527,10 +1661,8 @@ int fwd_c(const void* x, const void* w0, const void* b0, const void* w1, const v
           int B, int P, int C, void* out, cudaStream_t stream) {
   auto p = [](const void* v) { return static_cast<const T*>(v); };
   T* o = static_cast<T*>(out);
-  if (C == 4)
-    return fwd<T, 4, false>(p(x), p(w0), p(b0), p(w1), p(b1), nullptr, B, P, o, stream);
-  if (C == 8)
-    return fwd<T, 8, false>(p(x), p(w0), p(b0), p(w1), p(b1), nullptr, B, P, o, stream);
+  if (C == 4) return fwd<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), B, P, o, stream);
+  if (C == 8) return fwd<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), B, P, o, stream);
   return (int)cudaErrorInvalidValue;
 }
 

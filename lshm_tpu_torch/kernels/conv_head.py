@@ -22,32 +22,37 @@ weight gradients, which ``EncHead``'s backward casts to the weights' dtype
 (``conv2d_outer.py::_vjp_bwd``); K5 keeps its intermediate dpre1 = g1 * elu'(a1) in
 float32 and rounds dx once to x's dtype.
 
-K3 and float32 K5 sum on the CUDA cores.  K4 in either dtype
-(``tc::head_bwd_tc_kernel``, ``tc::head_bwd_f32_tc_kernel``) and bf16 K5
+float32 K5 sums on the CUDA cores.  K3 in either dtype (``tc::head_fwd_tc_kernel``), K4
+in either dtype (``tc::head_bwd_tc_kernel``, ``tc::head_bwd_f32_tc_kernel``) and bf16 K5
 (``tc::dpre1_tc_kernel`` then ``tc::head_dx_tc_kernel``) run each per-tile sum as a
-tensor-core product (``mma.sync``, bf16 operands, float32 sums).  In bf16, x, the
-weights and e0 are exact bf16 operands, and the two float32 cotangents (dpre1, dpre0) go
-in as three bf16 pieces each whose sum is the float32 value exactly, so their sums keep
-float32 accuracy.  float32 K4 splits every operand so (x, w0, w1 and the unrounded e0
-too) and runs the six piece pairs of order 2^-16 and above, which come as close to the
-head in float64 as all nine (``tests/test_torch_head_bwd_f32_tc.py``).  The windows
-stay in shared memory (bf16, or float32 K4's pieces) and the next tile's loads
-asynchronously.  The bf16 kernels sum a0 in another order than the plain version, so
-an e0 near a bf16 tie may round the other way: K4's sums lie as far from the head
-computed in float64 as the plain float32 version's do, and K5's bf16 dx as far as the
-plain version's rounded dx (``chip_smoke.py``).
+tensor-core product (``mma.sync``, bf16 operands, float32 sums); K3 is K4's stage 0 and
+stage 1 with the output's epilogue.  In bf16, x, the weights and e0 are exact bf16
+operands, and the two float32 cotangents (dpre1, dpre0) go in as three bf16 pieces
+each whose sum is the float32 value exactly, so their sums keep float32 accuracy.
+float32 K3 and K4 split every operand so (x, w0, w1 and the unrounded e0 too) and run
+the six piece pairs of order 2^-16 and above, which come as close to the head in
+float64 as all nine (``tests/test_torch_head_bwd_f32_tc.py``,
+``tests/test_torch_head_fwd_tc.py``).  The windows stay in shared memory (bf16, or
+float32's pieces) and the next tile's loads asynchronously.  The bf16 kernels sum a0
+in another order than the plain version, so an e0 near a bf16 tie may round the other
+way: K3 bf16's output differs from the plain version's in 1e-4 to 2e-4 of its elements,
+by one ulp each; K4's sums lie as far from the head computed in float64 as the plain
+float32 version's do, and K5's bf16 dx as far as the plain version's rounded dx
+(``chip_smoke.py``).
 
-Bound on the H100 at B=420, P=128, C=4, float32: forward 3.08 GFLOP (46 us at
-67 TFLOP/s FP32) over 130.7 MB (39 us at 3.35 TB/s), bound by operations; weight
+Bound on the H100 at B=420, P=128, C=4, float32: forward 3.08 GFLOP, float32-accurate
+as six bf16 piece pairs on the tensor cores (18.5 GFLOP: 19 us at 989 TFLOP/s; 46 us on
+the FP32 units), over 130.7 MB (39 us at 3.35 TB/s), bound by bytes; weight
 backward 7.5 GFLOP, each product float32-accurate as six bf16 piece pairs on the
 tensor cores (44.9 GFLOP: 45 us at 989 TFLOP/s; 112 us on the FP32 units), bound
 by operations (the kernel's products, with the padding, are 68.7 GFLOP: 69 us);
-input backward 6.17 GFLOP (92 us) over 240.8 MB (72 us), bound by operations.  bfloat16: forward and
-weight backward each move 65.4 MB (19.5 us), and their operations take 3.1 and 7.6 us
-on the bf16 tensor cores (989 TFLOP/s), so both are bound by bytes; the input backward
-must move 120.4 MB (35.9 us) against 6.2 us of operations, bound by bytes (its two
-passes move 216.8 MB: x is read twice, the float32 dpre1 written and read; their
-tensor-core products, with the pieces and the padding, are about 25 GFLOP, 26 us).
+input backward 6.17 GFLOP (92 us) over 240.8 MB (72 us), bound by operations.  bfloat16:
+forward and weight backward each move 65.4 MB (19.5 us), and their operations take 3.1
+and 7.6 us on the bf16 tensor cores (989 TFLOP/s), so both are bound by bytes; the
+input backward must move 120.4 MB (35.9 us) against 6.2 us of operations, bound by
+bytes (its two passes move 216.8 MB: x is read twice, the float32 dpre1 written and
+read; their tensor-core products, with the pieces and the padding, are about 25 GFLOP,
+26 us).
 What binds each kernel on the card, beyond these bounds, is in the CUDA source's header.
 """
 

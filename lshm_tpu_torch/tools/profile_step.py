@@ -1,9 +1,10 @@
 """Where the time of one full-width ADMM minibatch goes on the card.
 
-    python -m lshm_tpu_torch.tools.profile_step [--out FILE]
+    python -m lshm_tpu_torch.tools.profile_step [--out FILE] [--compute-dtype DTYPE]
 
 Builds the ``full_khm`` flagship configuration with the kernels on (420 patches of
-128 x 128 x 4 from a synthetic extract held in memory), warms up with one minibatch,
+128 x 128 x 4 from a synthetic extract held in memory), in float32 or another compute
+dtype (``bfloat16_full``: the ``full_khm_bf16`` preset's), warms up with one minibatch,
 then:
 
 1. profiles one minibatch with ``torch.profiler`` and reports the device time by
@@ -32,14 +33,14 @@ import torch
 
 ADMM_ITERS = 10                 # the full_khm preset's
 CATEGORIES = (   # (category, substrings of the kernel name), first match wins
-    ("port kernels", ("khm_fwd_kernel", "khm_bwd_kernel", "head_fwd_kernel",
+    ("port kernels", ("khm_fwd_kernel", "khm_bwd_kernel", "head_fwd_",
                       "head_bwd_", "reduce_partials_kernel")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop",
                      "winograd", "fft")),
-    ("matrix product", ("gemm", "gemv", "cutlass", "dot")),
+    ("matrix product", ("gemm", "gemv", "cutlass", "dot", "nvjet")),
     ("copy", ("memcpy", "memset", "copy")),
     ("elementwise and reduction", ("elementwise", "reduce", "vectorized", "unrolled",
-                                   "adam", "foreach", "cat", "index")),
+                                   "adam", "foreach", "multi_tensor", "cat", "index")),
 )
 
 
@@ -51,12 +52,13 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _config(kernels: bool, admm_iters: int):
+def _config(kernels: bool, admm_iters: int, compute_dtype: str):
     from lshm_tpu_torch.config import preset
 
     cfg = preset("full_khm")
     model = (dict(khm_backend="pallas", pallas_head=True) if kernels
              else dict(khm_backend="xla", pallas_head=False))
+    model["compute_dtype"] = compute_dtype
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **model),
         train=dataclasses.replace(cfg.train, admm_iters=admm_iters))
@@ -75,6 +77,8 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full kernel table to this JSON file")
+    ap.add_argument("--compute-dtype", default="float32",
+                    help="model.compute_dtype (float32, bfloat16, bfloat16_full)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -88,7 +92,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    cfg_k = _config(True, ADMM_ITERS)
+    cfg_k = _config(True, ADMM_ITERS, args.compute_dtype)
     tree = synth_extract(nstations=5, ntime=384, nfreq=512, seed=0)
     mb = MinibatchSampler([tree], ["0"], cfg_k.data, seed=0).sample()
     x, uv = torch.from_numpy(mb.x).to(dev), torch.from_numpy(mb.uv).to(dev)
@@ -96,7 +100,7 @@ def main() -> int:
 
     runs = {}
     for name in ("plain", "kernels"):
-        cfg = cfg_k if name == "kernels" else _config(False, ADMM_ITERS)
+        cfg = cfg_k if name == "kernels" else _config(False, ADMM_ITERS, args.compute_dtype)
         runs[name] = (init_train_state(cfg, dev), make_train_step(cfg, mb.num_baselines))
         state, step = runs[name]
         step(state, x, uv, w)                           # warm-up (cuDNN autotune, build)
@@ -128,7 +132,8 @@ def main() -> int:
     table = sorted(({"name": n, "calls": c, "us": us, "category": _category(n)}
                     for n, (c, us) in by_name.items()), key=lambda r: -r["us"])
     prof_row = {
-        "phase": "profile", "admm_iters": ADMM_ITERS, "patches": int(x.shape[0]),
+        "phase": "profile", "compute_dtype": args.compute_dtype,
+        "admm_iters": ADMM_ITERS, "patches": int(x.shape[0]),
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share_profiled": (1.0 - busy_us / wall_us) if kern else None,
         "kernel_events": len(kern),
