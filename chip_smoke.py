@@ -7,11 +7,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device     card name and power limit, torch and CUDA versions, TF32 flags
   2. build      compile the CUDA kernels from csrc/ (one nvcc per source, in parallel)
   3. parity     each kernel of K1-K5 against its plain PyTorch version at the main
-                path's shapes (K1/K2 at D = 256 and at the Fourier cascade's 288;
-                relative max error 1e-5 forward, 2e-5 gradients), bit-identical repeats
-                of K3-K5, K3 and K4 also at C = 8 (B = 16) and, with their plain
-                versions, against the head in float64 (on the first 8 samples at B =
-                420), and CUDA-event timings (median of 20 after warm-up,
+                path's shapes (K1/K2 at D = 256 and at the Fourier cascade's 288, and at
+                N = 2500, (5, 3, 128), a ragged D = 72, K = 21 and K = 200; relative max
+                error 1e-5 forward, 2e-5 gradients, and no farther from float64 than
+                twice the plain version; K1/K2 also timed as device_us (CUDA events
+                around 200 queued calls), host_us (the host clock around 200 calls) and
+                the profiler's us per launch, beside a launch_floor line, one queued
+                fill), bit-identical repeats of K1-K5, K3 and K4 also at C = 8 (B =
+                16) and, with their plain versions, against the head in float64 (on
+                the first 8 samples at B = 420), and CUDA-event timings (median of 20 after warm-up,
                 tools/measure.py) of kernel, plain version and library yardstick; then
                 K3, K4 and K5 in bfloat16 the same way (K3's output 4e-3, at most 5e-4
                 of its elements differing, within one bf16 ulp of the largest value;
@@ -112,33 +116,66 @@ def nvidia_smi() -> str:
 
 # --------------------------------------------------------------------------- phase 3
 
+def khm_f64(X, M, p: int, g: float) -> tuple:
+    """loss, e, dX, dM (cotangent g) in float64, d2 from the differences: how far a
+    kernel and its plain version each lie from the nearly exact result."""
+    X, M = X.double(), M.double()
+    (N, D), K = X.shape, M.shape[0]
+    d2 = ((X[:, None, :] - M[None]) ** 2).sum(-1)
+    t = d2 ** (p // 2) + 1e-9
+    e = (1.0 / t).sum(-1, keepdim=True)
+    c = g * p * d2 ** (p // 2 - 1) / ((N * D) * (e + 1e-9) ** 2 * t * t)
+    return ((K / (e + 1e-9)).sum() / (N * K * D), e,
+            c.sum(-1, keepdim=True) * X - c @ M, c.sum(0)[:, None] * M - c.T @ X)
+
+
 def khm_phase(dev) -> list[dict]:
     from lshm_tpu_torch.kernels import khm as K
-    from lshm_tpu_torch.tools.measure import bound, time_ms
+    from lshm_tpu_torch.tools.measure import (bound, host_us, profiler_us, queued_us,
+                                              time_ms)
 
+    # the floor of one launch on this card: a one-element fill, queued like K1/K2 below
+    one = torch.zeros(1, device=dev)
+    emit({"phase": "launch_floor", "launch_floor_us": queued_us(lambda: one.fill_(1.0))})
     g = torch.Generator().manual_seed(0)
     rows = []
-    # the full_khm latent (224 + 2 x 16), the fourier_cascade one (224 + 64), and a
-    # larger batch at the first
-    for N, Kc, D in ((420, 10, 256), (420, 10, 288), (2500, 10, 256)):
+    # the full_khm latent (224 + 2 x 16), the fourier_cascade one (224 + 64), a larger
+    # batch, a small case, a ragged D, a K above the kernels' 8-centroid chunk, and M
+    # too large for shared memory beside K2's sums (K2 reads M from L2)
+    for N, Kc, D in ((420, 10, 256), (420, 10, 288), (2500, 10, 256), (5, 3, 128),
+                     (48, 6, 72), (200, 21, 96), (420, 200, 256)):
         X = torch.randn(N, D, generator=g).to(dev)
         M = torch.rand(Kc, D, generator=g).to(dev)
         gg = torch.tensor(0.01, device=dev)          # the main path's alpha
         loss, e = K.khm_forward(X, M, 4)
+        loss2, e2 = K.khm_forward(X, M, 4)
         loss_p, e_p = K.khm_forward_plain(X, M, 4)
         dX, dM = K.khm_backward(X, M, e, gg, 4)
         dX_p, dM_p = K.khm_backward_plain(X, M, e_p, gg, 4)
         dX2, dM2 = K.khm_backward(X, M, e, gg, 4)
+        loss64, e64, dX64, dM64 = khm_f64(X, M, 4, float(gg))
         torch.cuda.synchronize()
         fwd_rel = max(rel_err(loss, loss_p), rel_err(e, e_p))
         bwd_rel = max(rel_err(dX, dX_p), rel_err(dM, dM_p))
         row = {"phase": "parity", "kernel": "khm", "N": N, "K": Kc, "D": D,
+               "plan": K.plan(Kc, D), "cluster": K.CLUSTER,
                "fwd_rel_err": fwd_rel, "bwd_rel_err": bwd_rel,
+               "fwd_rel_err_vs_f64": {
+                   "kernel": max(rel_err(loss, loss64), rel_err(e, e64)),
+                   "plain": max(rel_err(loss_p, loss64), rel_err(e_p, e64))},
+               "bwd_rel_err_vs_f64": {
+                   "kernel": max(rel_err(dX, dX64), rel_err(dM, dM64)),
+                   "plain": max(rel_err(dX_p, dX64), rel_err(dM_p, dM64))},
+               "fwd_bit_identical": bool(torch.equal(loss, loss2) and torch.equal(e, e2)),
                "bwd_bit_identical": bool(torch.equal(dX, dX2) and torch.equal(dM, dM2))}
         emit(row)
-        if fwd_rel > 1e-5 or bwd_rel > 2e-5 or not row["bwd_bit_identical"]:
+        # no farther from float64 than twice the plain version
+        near_f64 = all(d["kernel"] <= 2 * d["plain"]
+                       for d in (row["fwd_rel_err_vs_f64"], row["bwd_rel_err_vs_f64"]))
+        if (fwd_rel > 1e-5 or bwd_rel > 2e-5 or not near_f64
+                or not row["fwd_bit_identical"] or not row["bwd_bit_identical"]):
             raise AssertionError(f"KHM kernels disagree with their plain versions: {row}")
-        if N != 420:
+        if N != 420 or Kc != 10:
             continue
         flops_dist = 2.0 * N * Kc * D + 2.0 * N * D + 2.0 * Kc * D
         b1 = bound(4.0 * (N * D + Kc * D + N + 1), flops_dist + 6.0 * N * Kc)
@@ -146,17 +183,25 @@ def khm_phase(dev) -> list[dict]:
         # the D = 256 rows count their launches on the main path, the D = 288 rows on
         # the Fourier trainer's
         at, path = ("", "trainer") if D == 256 else (f" (D={D})", "trainer_fourier")
+        fwd = lambda: K.khm_forward(X, M, 4)          # noqa: E731
+        bwd = lambda: K.khm_backward(X, M, e, gg, 4)  # noqa: E731
+        # device time per launch: K1/K2 are one launch each, their only device work
+        prof_fwd, prof_bwd = profiler_us(fwd), profiler_us(bwd)
         rows += [
             dict(name=f"K1 khm_fwd{at}", route="cuda", source="lshm_tpu_torch/csrc/khm.cu",
                  replaces="lshm_tpu/kernels/khm_pallas.py:71", counter="khm_fwd", path=path,
+                 arch=f"one cluster of {K.CLUSTER} CTAs, sums in DSMEM",
                  max_abs_err=max(abs_err(loss, loss_p), abs_err(e, e_p)),
-                 ms=time_ms(lambda: K.khm_forward(X, M, 4)),
+                 ms=time_ms(fwd), device_us=queued_us(fwd), host_us=host_us(fwd),
+                 profiler_us=prof_fwd,
                  plain_ms=time_ms(lambda: K.khm_forward_plain(X, M, 4)),
                  bound_ms=b1[0], bound_by=b1[1], library_ms=None),
             dict(name=f"K2 khm_bwd{at}", route="cuda", source="lshm_tpu_torch/csrc/khm.cu",
                  replaces="lshm_tpu/kernels/khm_pallas.py:92", counter="khm_bwd", path=path,
+                 arch=f"one cluster of {K.CLUSTER} CTAs, sums in DSMEM",
                  max_abs_err=max(abs_err(dX, dX_p), abs_err(dM, dM_p)),
-                 ms=time_ms(lambda: K.khm_backward(X, M, e, gg, 4)),
+                 ms=time_ms(bwd), device_us=queued_us(bwd), host_us=host_us(bwd),
+                 profiler_us=prof_bwd,
                  plain_ms=time_ms(lambda: K.khm_backward_plain(X, M, e_p, gg, 4)),
                  bound_ms=b2[0], bound_by=b2[1], library_ms=None),
         ]

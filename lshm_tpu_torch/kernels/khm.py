@@ -7,8 +7,12 @@ Replaces ``lshm_tpu/kernels/khm_pallas.py``: ``_fwd_kernel`` (K1) and ``_bwd_ker
 ``khm_forward`` and ``khm_backward`` are the kernel wrappers: for a CUDA tensor they
 launch the kernel (or raise), for a CPU tensor they run the plain PyTorch version
 beside them (``khm_forward_plain`` / ``khm_backward_plain``), which repeats the
-kernel's arithmetic.  Bound on the H100 at the main path's shapes (N=420, D=256,
-K=10): under 1 MB moved and ~2 MFLOP per call, so both are bound by launch latency.
+kernel's arithmetic.  Each pass is one launch of one thread block cluster of
+``CLUSTER`` CTAs, whose cross-CTA sums (the loss, dM) meet in distributed shared
+memory: no scratch in device memory and no second pass.  The wrapper allocates the
+outputs only, and ``plan`` fixes the warps per CTA once per (K, D).  Bound on the H100
+at the main path's shapes (N=420, D=256, K=10): under 1 MB moved and ~2 MFLOP per
+call, so both are bound by latency (the launch, the loads, the cluster's barriers).
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ from lshm_tpu_torch.losses import EPS, _f32, khm_loss, pairwise_sq_dists
 
 # launches of each CUDA kernel since the last reset (kernels.reset_launches)
 launches = {"khm_fwd": 0, "khm_bwd": 0}
+CLUSTER = 16                       # CTAs in the one cluster of each launch (G)
 _MAX_SMEM = 232448                 # bytes of shared memory a block can use on Hopper
+_WARPS = (16, 8, 4, 2, 1)          # warps per CTA (W), the first that fits
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -31,14 +37,29 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("khm")
-    lib.khm_num_blocks.argtypes, lib.khm_num_blocks.restype = [_I], _I
-    lib.khm_smem_bytes.argtypes = [_I, _I]
-    lib.khm_smem_bytes.restype = ctypes.c_size_t
-    lib.khm_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.khm_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.khm_fwd.restype = _I
-    lib.khm_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+    lib.khm_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.khm_bwd.restype = _I
     return lib
+
+
+@functools.cache
+def plan(K: int, D: int) -> tuple[int, int, bool]:
+    """(W for K1, W for K2, whether K2 holds M in shared memory) at M [K, D]: the most
+    warps per CTA whose shared memory fits (sizes as in ``csrc/khm.cu``'s header), K2
+    with M in shared memory where any W fits so.  Raises where nothing fits."""
+    def fits(floats: int) -> bool:
+        return 4 * floats <= _MAX_SMEM
+
+    kp = -(-K // 4) * 4
+    fwd = next((w for w in _WARPS if fits(2 * w * kp + K * D + K + 2 * w * D + 2 * w + 1)),
+               None)
+    bwd = next(((w, m) for m in (True, False) for w in _WARPS
+                if fits(2 * w * kp + (2 if m else 1) * K * D + 2 * K + 2 * w * D)), None)
+    if fwd is None or bwd is None:
+        raise ValueError(f"khm kernel: M [{K}, {D}] does not fit in shared memory")
+    return fwd, bwd[0], bwd[1]
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -96,17 +117,14 @@ def khm_forward(X: torch.Tensor, M: torch.Tensor, p: int):
     _check_inputs(X, M, p)
     if _on(X) == "cpu":
         return khm_forward_plain(X, M, p)
-    lib = _lib()
     (N, D), K = X.shape, M.shape[0]
-    if lib.khm_smem_bytes(K, D) > _MAX_SMEM:
-        raise ValueError(f"khm kernel: M [{K}, {D}] does not fit in shared memory")
+    warps = plan(K, D)[0]
     e = torch.empty((N, 1), dtype=torch.float32, device=X.device)
-    partial = torch.empty(lib.khm_num_blocks(N), dtype=torch.float32, device=X.device)
     loss = torch.empty((), dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.khm_fwd(X.data_ptr(), M.data_ptr(), N, K, D, p, e.data_ptr(),
-                                 partial.data_ptr(), loss.data_ptr(), stream), "khm_fwd")
+    dev = X.device.index
+    _build.check(_lib().khm_fwd(X.data_ptr(), M.data_ptr(), N, K, D, p, warps, CLUSTER,
+                                dev, e.data_ptr(), loss.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream), "khm_fwd")
     launches["khm_fwd"] += 1
     return loss, e
 
@@ -119,17 +137,15 @@ def khm_backward(X: torch.Tensor, M: torch.Tensor, e: torch.Tensor, g: torch.Ten
     _check("g", g, (), X.device)
     if _on(X) == "cpu":
         return khm_backward_plain(X, M, e, g, p)
-    lib = _lib()
     (N, D), K = X.shape, M.shape[0]
+    _, warps, m_shared = plan(K, D)
     dX = torch.empty_like(X)
     dM = torch.empty_like(M)
-    partial = torch.empty((lib.khm_num_blocks(N), K, D), dtype=torch.float32,
-                          device=X.device)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.khm_bwd(X.data_ptr(), M.data_ptr(), e.data_ptr(), g.data_ptr(),
-                                 N, K, D, p, dX.data_ptr(), partial.data_ptr(),
-                                 dM.data_ptr(), stream), "khm_bwd")
+    dev = X.device.index
+    _build.check(_lib().khm_bwd(X.data_ptr(), M.data_ptr(), e.data_ptr(), g.data_ptr(),
+                                N, K, D, p, warps, CLUSTER, int(m_shared), dev,
+                                dX.data_ptr(), dM.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream), "khm_bwd")
     launches["khm_bwd"] += 1
     return dX, dM
 

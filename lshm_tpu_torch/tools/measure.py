@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 import statistics
+import time
 
 import torch
 
@@ -30,6 +31,61 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def queued_us(fn, calls: int = 200) -> float:
+    """Device time of one call (us): CUDA events around ``calls`` calls queued without a
+    synchronisation, divided by ``calls``, after 5 warm-up calls.  Where the host takes
+    longer per call than the device, this reads the host's rate."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(calls):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) * 1e3 / calls
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call (us): the host clock around ``calls`` calls without a
+    synchronisation, divided by ``calls``, after 5 warm-up calls."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / calls
+
+
+def kernel_name(name: str) -> str:
+    """A profiler's kernel name without its parameters and anonymous namespace."""
+    return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
+def profiler_us(fn, calls: int = 50) -> dict[str, float]:
+    """{kernel name: device us per launch} over ``calls`` calls of ``fn`` under
+    ``torch.profiler``, after 5 warm-up calls."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            d = per.setdefault(kernel_name(ev.name), [0, 0.0])
+            d[0] += 1
+            d[1] += ev.time_range.elapsed_us()
+    return {name: us / n for name, (n, us) in per.items()}
 
 
 def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_FP32_FLOP_S

@@ -11,7 +11,9 @@ then:
    kernel and by category (the port's CUDA kernels, cuDNN convolutions, matrix
    products, elementwise and reductions, copies), the device's busy and idle share of
    the minibatch's wall time (profiled, and against the unprofiled minibatches of
-   step 2, since the profiler slows the host), and the top kernels;
+   step 2, since the profiler slows the host), and the top kernels; then a
+   ``port_kernels`` line: calls, device ms and us per call of each port kernel by
+   name, each fixed-order reduction under the kernel whose partials it sums;
 2. times whole minibatches (host clock around a synchronised step) on the kernel path
    and on the plain path (``khm_backend="xla"``, ``pallas_head=False``) in turns:
    plain, kernels, kernels, plain.
@@ -33,8 +35,8 @@ import torch
 
 ADMM_ITERS = 10                 # the full_khm preset's
 CATEGORIES = (   # (category, substrings of the kernel name), first match wins
-    ("port kernels", ("khm_fwd_kernel", "khm_bwd_kernel", "head_fwd_",
-                      "head_bwd_", "reduce_partials_kernel")),
+    ("port kernels", ("khm_fwd", "khm_bwd", "head_fwd_", "head_bwd_", "head_dx",
+                      "dpre1", "reduce_partials_kernel")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop",
                      "winograd", "fft")),
     ("matrix product", ("gemm", "gemv", "cutlass", "dot", "nvjet")),
@@ -62,6 +64,29 @@ def _config(kernels: bool, admm_iters: int, compute_dtype: str):
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **model),
         train=dataclasses.replace(cfg.train, admm_iters=admm_iters))
+
+
+def _port_kernels(kern) -> list[dict]:
+    """Calls, device ms and us per call of each port kernel by name, a fixed-order
+    reduction (``reduce_partials_kernel``) counted under the port kernel launched just
+    before it on the device, whose partials it sums."""
+    from lshm_tpu_torch.tools.measure import kernel_name
+
+    per: dict[str, list] = {}
+    owner = "?"
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        if _category(e.name) != "port kernels":
+            continue
+        name = kernel_name(e.name)
+        if "reduce_partials" in name:
+            name = f"{name} after {owner}"
+        else:
+            owner = name
+        d = per.setdefault(name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.elapsed_us()
+    return [{"name": n, "calls": c, "device_ms": us / 1e3, "us_per_call": us / c}
+            for n, (c, us) in sorted(per.items(), key=lambda kv: -kv[1][1])]
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -142,6 +167,9 @@ def main() -> int:
         "top": table[:12],
     }
     print(json.dumps(prof_row), flush=True)
+    port_row = {"phase": "port_kernels", "compute_dtype": args.compute_dtype,
+                "admm_iters": ADMM_ITERS, "kernels": _port_kernels(kern)}
+    print(json.dumps(port_row), flush=True)
 
     # 2. whole minibatches in turns: plain, kernels, kernels, plain
     times: dict[str, list] = {"plain": [], "kernels": []}
@@ -164,6 +192,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "profile": {**prof_row, "top": table},
+                       "port_kernels": port_row["kernels"],
                        "ab_ms_per_admm_iter": times}, f, indent=1)
     print(smi, flush=True)
     return 0
