@@ -13,10 +13,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 twice the plain version; K1/K2 also timed as device_us (CUDA events
                 around 200 queued calls), host_us (the host clock around 200 calls) and
                 the profiler's us per launch, beside a launch_floor line, one queued
-                fill), bit-identical repeats of K1-K5, K3 and K4 also at C = 8 (B =
-                16) and, with their plain versions, against the head in float64 (on
-                the first 8 samples at B = 420), and CUDA-event timings (median of 20 after warm-up,
-                tools/measure.py) of kernel, plain version and library yardstick; then
+                fill), bit-identical repeats of K1-K5, K3-K5 also at C = 8 (B = 16)
+                and, with their plain versions, against the head in float64 (on the
+                first 8 samples at B = 420), a float32 g1 off its pair alignment
+                refused by K5's wrapper, and CUDA-event timings (median of 20 after
+                warm-up, tools/measure.py) of kernel, plain version and library
+                yardstick, with the profiler's device time per launch for K5 (its other
+                floors, computed from the shapes, in the parity row's dx_floors); then
                 K3, K4 and K5 in bfloat16 the same way (K3's output 4e-3, at most 5e-4
                 of its elements differing, within one bf16 ulp of the largest value;
                 K5's dx one bf16 ulp, with the share of elements that differ; K4's
@@ -68,7 +71,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -106,12 +108,6 @@ def host_ms(fn, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 # --------------------------------------------------------------------------- phase 3
@@ -233,7 +229,8 @@ def head_phase(dev) -> list[dict]:
     import torch.nn.functional as F
 
     from lshm_tpu_torch.kernels import conv_head as H
-    from lshm_tpu_torch.tools.measure import PEAK_BF16_TC_FLOP_S, bound, time_ms
+    from lshm_tpu_torch.tools.measure import (PEAK_BF16_TC_FLOP_S, bound, profiler_us,
+                                              time_ms)
 
     x, w0, b0, w1, b1, g1 = head_inputs(dev)
     B, P, _, C = x.shape
@@ -250,6 +247,7 @@ def head_phase(dev) -> list[dict]:
     # float64 reference on the first 8 samples
     first8 = (x[:8], w0, b0, w1, b1, g1[:8])
     gr8, gr8_p = H.head_weight_grads(*first8), H.head_grads_plain(*first8)
+    dx8, dx8_p = H.head_input_grad(*first8), dx_plain(*first8)
     f64 = grads_f64(first8)
     c8 = head_c8(dev, torch.float32)
     torch.cuda.synchronize()
@@ -260,13 +258,18 @@ def head_phase(dev) -> list[dict]:
            "bwd_rel_err_each": [rel_err(a, b) for a, b in zip(gr, gr_p)],
            "bwd_rel_err_vs_f64": vs_f64({"kernel": gr8, "plain": gr8_p}, f64[1:]),
            "bwd_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2)), **c8,
-           "dx_rel_err": rel_err(dx, dx_p), "dx_bit_identical": bool(torch.equal(dx, dx2))}
+           "dx_rel_err": rel_err(dx, dx_p), "dx_bit_identical": bool(torch.equal(dx, dx2)),
+           "dx_vs_f64": vs_f64({"kernel": [dx8], "plain": [dx8_p]}, f64[:1]),
+           "dx_misaligned_g1_refused": misaligned_g1_refused(x, w0, b0, w1, b1, g1),
+           "dx_floors": dx_floors(B, P, C, F0, F1),
+           "digest": {"k3": digest([y]), "k4": digest(gr), "k5": digest([dx])}}
     emit(row)
-    # K3 and K4 no farther from the float64 head than twice the plain version: a kernel
+    # K3-K5 no farther from the float64 head than twice the plain version: a kernel
     # that dropped piece pairs (K4: three pairs read ~1e-5, six ~4e-7) fails here
     near_f64 = all(d["kernel"] <= 2 * d["plain"]
                    for d in (row["bwd_rel_err_vs_f64"], row["bwd_c8_rel_err_vs_f64"],
-                             row["fwd_rel_err_vs_f64"], row["fwd_c8_rel_err_vs_f64"]))
+                             row["fwd_rel_err_vs_f64"], row["fwd_c8_rel_err_vs_f64"],
+                             row["dx_vs_f64"], row["dx_c8_vs_f64"]))
     if (fwd_rel > 1e-5 or not row["fwd_bit_identical"]
             or row["fwd_c8_rel_err"] > 1e-5 or not row["fwd_c8_bit_identical"]
             or row["fwd_rel_err_vs_f64"]["kernel"] > 1e-5
@@ -274,7 +277,9 @@ def head_phase(dev) -> list[dict]:
             or bwd_rel > 2e-5 or not row["bwd_bit_identical"]
             or row["bwd_c8_rel_err"] > 2e-5 or not row["bwd_c8_bit_identical"]
             or not near_f64
-            or row["dx_rel_err"] > 2e-5 or not row["dx_bit_identical"]):
+            or row["dx_rel_err"] > 2e-5 or not row["dx_bit_identical"]
+            or row["dx_c8_rel_err"] > 2e-5 or not row["dx_c8_bit_identical"]
+            or not row["dx_misaligned_g1_refused"]):
         raise AssertionError(f"conv-head kernels disagree with their plain versions: {row}")
 
     # library yardsticks: cuDNN on NCHW-contiguous input (no layout copies)
@@ -307,8 +312,10 @@ def head_phase(dev) -> list[dict]:
     b4 = bound(in_b + out_b + 2 * w_b, 6 * 2.0 * (2 * mac0 + 3 * mac1),
                PEAK_BF16_TC_FLOP_S)
     # input backward: recompute both stages, the stage-0 cotangent (mac1), dx (mac0);
-    # reads x and g1, writes dx
-    b5 = bound(2 * in_b + out_b + w_b, 2.0 * (2 * mac0 + 2 * mac1))
+    # reads x and g1, writes dx; six bf16 piece pairs per product on the tensor cores
+    # (the parity row's dx_floors holds its other floors)
+    b5 = bound(2 * in_b + out_b + w_b, 6 * 2.0 * (2 * mac0 + 2 * mac1), PEAK_BF16_TC_FLOP_S)
+    k5 = lambda: H.head_input_grad(x, w0, b0, w1, b1, g1)      # noqa: E731
     return [
         dict(name="K3 head_fwd", route="cuda", source="lshm_tpu_torch/csrc/conv_head.cu",
              replaces="lshm_tpu/kernels/conv2d_outer.py:233", counter="head_fwd",
@@ -327,8 +334,8 @@ def head_phase(dev) -> list[dict]:
         dict(name="K5 head_dx", route="cuda", source="lshm_tpu_torch/csrc/conv_head.cu",
              replaces="lshm_tpu/kernels/conv2d_outer.py:404", counter="head_dx",
              path="head_input_grad",
-             max_abs_err=abs_err(dx, dx_p),
-             ms=time_ms(lambda: H.head_input_grad(x, w0, b0, w1, b1, g1)),
+             arch="mma.sync m16n8k16 bf16, operands in 3 pieces, 6 pairs; two passes",
+             max_abs_err=abs_err(dx, dx_p), ms=time_ms(k5), profiler_us=profiler_us(k5),
              plain_ms=time_ms(lambda: H.head_grads_plain(x, w0, b0, w1, b1, g1,
                                                          input_grad=True)),
              bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx)),
@@ -341,7 +348,8 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     import torch.nn.functional as F
 
     from lshm_tpu_torch.kernels import conv_head as H
-    from lshm_tpu_torch.tools.measure import PEAK_BF16_TC_FLOP_S, bound, time_ms
+    from lshm_tpu_torch.tools.measure import (PEAK_BF16_TC_FLOP_S, bound, profiler_us,
+                                              time_ms)
 
     xb, w0b, b0b, w1b, b1b, g1b = (t.to(torch.bfloat16) for t in (x, w0, b0, w1, b1, g1))
     args = (xb, w0b, b0b, w1b, b1b)
@@ -352,7 +360,7 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     gr_p = H.head_grads_plain(*args, g1b)
     gr2 = H.head_weight_grads(*args, g1b)
     dx = H.head_input_grad(*args, g1b)
-    dx_p = dx_plain_bf16(*args, g1b)
+    dx_p = dx_plain(*args, g1b)
     dx2 = H.head_input_grad(*args, g1b)
     c8 = head_c8(x.device, torch.bfloat16)
     f64 = grads_f64((*args, g1b))
@@ -404,8 +412,7 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
     b3 = bound(in_b + out_b + w_b, 2.0 * (mac0 + mac1), PEAK_BF16_TC_FLOP_S)
     b4 = bound(in_b + out_b + 2 * w_b, 2.0 * (2 * mac0 + 3 * mac1), PEAK_BF16_TC_FLOP_S)
     b5 = bound(2 * in_b + out_b + w_b, 2.0 * (2 * mac0 + 2 * mac1), PEAK_BF16_TC_FLOP_S)
-    # what K5's two passes move: x twice, g1, the float32 dpre1 written and read, dx
-    k5_moved = 3 * in_b + out_b + 2 * 4.0 * B * (P // 4) ** 2 * F1
+    k5 = lambda: H.head_input_grad(*args, g1b)      # noqa: E731
     src, tpu = "lshm_tpu_torch/csrc/conv_head.cu", "lshm_tpu/kernels/conv2d_outer.py"
     return [
         dict(name="K3 head_fwd (bf16)", route="cuda", source=src, replaces=f"{tpu}:233",
@@ -423,19 +430,16 @@ def head_bf16_rows(x, w0, b0, w1, b1, g1) -> list[dict]:
         dict(name="K5 head_dx (bf16)", route="cuda", source=src, replaces=f"{tpu}:404",
              counter="head_dx_bf16", path="head_input_grad",
              arch="mma.sync m16n8k16 bf16, 3-piece split; two passes",
-             max_abs_err=abs_err(dx.float(), dx_p.float()),
-             ms=time_ms(lambda: H.head_input_grad(*args, g1b)),
-             plain_ms=time_ms(lambda: dx_plain_bf16(*args, g1b)),
-             bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx),
-             kernel_moves_mb=k5_moved / 1e6),
+             max_abs_err=abs_err(dx.float(), dx_p.float()), ms=time_ms(k5),
+             profiler_us=profiler_us(k5), plain_ms=time_ms(lambda: dx_plain(*args, g1b)),
+             bound_ms=b5[0], bound_by=b5[1], library_ms=time_ms(cudnn_dx)),
     ]
 
 
 def head_c8(dev, dtype) -> dict:
-    """K3 and K4 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the
-    tensor-core stage-0 products) against their plain versions, each also against the
-    head in float64, and two calls bit for bit; in bf16 K5 the same way (dx fills the
-    whole n-tile)."""
+    """K3, K4 and K5 at C = 8 (B = 16, P = 128; each ky spans two k-steps of the
+    tensor-core stage-0 products, and dx fills the whole n-tile) against their plain
+    versions, each also against the head in float64, and two calls bit for bit."""
     from lshm_tpu_torch.kernels import conv_head as H
 
     B, P, C = 16, 128, 8
@@ -454,12 +458,14 @@ def head_c8(dev, dtype) -> dict:
            "bwd_c8_rel_err": max(rel_err(a, b) for a, b in zip(gr, gr_p)),
            "bwd_c8_rel_err_vs_f64": vs_f64({"kernel": gr, "plain": gr_p}, f64[1:]),
            "bwd_c8_bit_identical": all(torch.equal(a, b) for a, b in zip(gr, gr2))}
+    dx, dx2, dx_p = H.head_input_grad(*args), H.head_input_grad(*args), dx_plain(*args)
     if dtype == torch.bfloat16:
-        dx, dx2, dx_p = (H.head_input_grad(*args), H.head_input_grad(*args),
-                         dx_plain_bf16(*args))
         row.update({k.replace("dx_", "dx_c8_"): v
-                    for k, v in dx_agreement(dx, dx_p, dx2).items()},
-                   dx_c8_vs_f64=vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1]))
+                    for k, v in dx_agreement(dx, dx_p, dx2).items()})
+    else:
+        row.update(dx_c8_rel_err=rel_err(dx, dx_p),
+                   dx_c8_bit_identical=bool(torch.equal(dx, dx2)))
+    row["dx_c8_vs_f64"] = vs_f64({"kernel": [dx], "plain": [dx_p]}, f64[:1])
     return row
 
 
@@ -521,12 +527,44 @@ def vs_f64(forms: dict, want) -> dict:
             for k, got in forms.items()}
 
 
-def dx_plain_bf16(x, w0, b0, w1, b1, g1) -> torch.Tensor:
-    """K5's plain version on bf16 inputs: the float32 autograd gradient, rounded once
+def dx_plain(x, w0, b0, w1, b1, g1) -> torch.Tensor:
+    """K5's plain version: the float32 autograd gradient, rounded once to x's dtype
     (what ``head_input_grad`` returns for a CPU tensor)."""
     from lshm_tpu_torch.kernels import conv_head as H
 
     return H.head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0].to(x.dtype)
+
+
+def dx_floors(B: int, P: int, C: int, F0: int, F1: int) -> dict:
+    """K5's floors beside its rows' bound_ms, from the shapes alone: float32 K5's bound
+    with its products on the FP32 units, and what the two passes move in each dtype (x
+    twice, g1, the float32 dpre1 written and read, dx) with that traffic's time at the
+    memory rate."""
+    from lshm_tpu_torch.tools.measure import bound
+
+    n_x, n_g = B * P * P * C, B * (P // 4) ** 2 * F1
+    n_w = F0 * C * 16 + F1 * F0 * 16 + F0 + F1
+    mac0, mac1 = B * (P // 2) ** 2 * F0 * 16 * C, n_g * 16 * F0
+    out = {"float32_fp32_units_ms": bound(4.0 * (2 * n_x + n_g + n_w),
+                                          2.0 * (2 * mac0 + 2 * mac1))[0]}
+    for name, size in (("float32", 4.0), ("bf16", 2.0)):
+        moved = size * (3 * n_x + n_g) + 2 * 4.0 * n_g
+        out[f"{name}_two_passes_mb"] = moved / 1e6
+        out[f"{name}_two_passes_ms"] = bound(moved, 0.0)[0]
+    return out
+
+
+def misaligned_g1_refused(x, w0, b0, w1, b1, g1) -> bool:
+    """Whether K5's wrapper refuses a float32 g1 one element off the 8-byte alignment
+    of its channel pairs (the kernel loads them as float2) with a ValueError."""
+    from lshm_tpu_torch.kernels import conv_head as H
+
+    off = torch.empty(g1.numel() + 1, dtype=g1.dtype, device=g1.device)[1:].view(g1.shape)
+    try:
+        H.head_input_grad(x, w0, b0, w1, b1, off)
+    except ValueError:
+        return True
+    return False
 
 
 def dx_agreement(dx, dx_p, dx2) -> dict:
@@ -744,7 +782,7 @@ def head_input_grad_phase(dev) -> dict:
            "launches": {k: counts[k] for k in HEAD_PATH + HEAD_BF16_PATH},
            "dx_rel_err": rel_err(dx, want[0]),
            "dw_rel_err": max(rel_err(a, b) for a, b in zip(dws, want[1:])),
-           "bf16": {**dx_agreement(dxb, dx_plain_bf16(xb, *wb, g1b), dxb2),
+           "bf16": {**dx_agreement(dxb, dx_plain(xb, *wb, g1b), dxb2),
                     "dw_sums_rel_err": max(rel_err(a, b) for a, b in zip(sums, sums_p))}}
     emit(row)
     if any(v == 0 for v in row["launches"].values()):
@@ -1016,10 +1054,11 @@ def main() -> int:
     from lshm_tpu_torch.data import synth_extract
     from lshm_tpu_torch.device import use_exact_float32
     from lshm_tpu_torch.kernels import _build
+    from lshm_tpu_torch.tools.measure import card
 
     dev = torch.device("cuda")
     use_exact_float32()
-    smi = nvidia_smi()
+    smi = card()
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
@@ -1080,7 +1119,7 @@ def main() -> int:
             k["launches_lbfgs"] = lbfgs[counter]
         k["status"] = "ported, held against its plain version"
     emit({"kernels": kernels, "still_to_port": []})
-    print(nvidia_smi(), flush=True)
+    print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -100,8 +100,8 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---- the 2D AE's first stage: a k=4, s=2, p=1 convolution of C -> F channels ----
-// Shared by the fused head (conv_head.cu: K3, K4, K5) and the standalone stage
-// (conv0.cu: K6), so every kernel sums the taps in the same (ky, kx, c) order.
+// The standalone stage on the CUDA cores (conv0.cu: K6); the fused head (conv_head.cu)
+// runs its stage 0 on the tensor cores instead.
 
 // w [F, C, 4, 4] (OIHW) -> ws [tap][c][f], tap = ky * 4 + kx; b [F] -> bs (float).
 template <int C, int F, typename T>

@@ -10,10 +10,9 @@
 // C is 4 or 8 (template), F0 = 8 and F1 = 12 (the ladder's first two widths).
 //
 // Storage type T (template) of x, the weights, the biases, g1 and the output (dx for
-// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  K3, K4 and bf16 K5 sum
-// on the tensor cores: bf16 operands stay bf16 (their products are exact in a float32
-// sum), and float32 operands go in as three bf16 pieces each (below).  float32 K5 runs
-// on the CUDA cores, the window and weights widened to float32 in shared memory.  In
+// K5): float, or __nv_bfloat16 for the bfloat16 compute modes.  K3, K4 and K5 sum on
+// the tensor cores in both dtypes: bf16 operands stay bf16 (their products are exact in
+// a float32 sum), and float32 operands go in as three bf16 pieces each (below).  In
 // bf16, as in the TPU kernel, the stage-0 activation e0 is rounded to bf16
 // (the TPU kernel stores it in x's dtype), stage 1 sums over the rounded e0, and the
 // output is rounded to bf16; K4 and K5 take elu' of the unrounded float a0, K4 sums dW1
@@ -29,17 +28,16 @@
 // outside the image are conv1's zero padding and are stored as 0, not elu(b0) — the
 // TPU kernel zeroes the same borders.  The TPU
 // kernel's double space-to-depth packing only worked around Mosaic's missing strided
-// slices and is not needed here: the block reads the strided taps directly.  The
-// stage-0 helpers are in common.cuh, shared with the standalone stage (conv0.cu).
+// slices and is not needed here: the block reads the strided taps directly.
 //
-// Forward (K3, tc::head_fwd_tc_kernel): K4's stage 0 (e0 only) and stage 1, the
-// tensor-core products described below, on a fixed grid of blocks walking the tiles
-// with the next tile's window in flight (cp.async).  Per tile: stage 0 writes e0 to
-// shared memory (rounded to bf16 in bf16, in three pieces in float32), one block-wide
-// sync, stage 1 leaves a1 in registers, and out = elu(a1 + b1) is rounded to T and
-// stored where the output lies inside the image (F1 is padded to 16; channels 12 .. 15
-// are never stored).  The weight fragments are loaded once per block.  bf16: two bf16
-// windows (one per buffer), 160 products a tile at C = 4; shared memory 33,504 bytes at
+// Forward (K3, tc::head_fwd_tc_kernel, its body tc::fwd_tiles): K4's stage 0 (e0
+// only) and stage 1, the tensor-core products described below, on a fixed grid of
+// blocks walking the tiles with the next tile's window in flight (cp.async).  Per tile:
+// stage 0 writes e0 to shared memory (rounded to bf16 in bf16, in three pieces in
+// float32), one block-wide sync, stage 1 leaves a1 in registers, and out = elu(a1 +
+// b1) is rounded to T and stored where the output lies inside the image (F1 is padded
+// to 16; channels 12 .. 15 are never stored).  The weight fragments are loaded once
+// per block.  bf16: two bf16 windows (one per buffer), 160 products a tile at C = 4; shared memory 33,504 bytes at
 // C = 4 and 57,632 at C = 8, three blocks of 256 threads per SM (ptxas: 71 and 80
 // registers, no spills; a fourth block at C = 4 would cap them at 64 and, tried on the
 // card, ran no faster).  float32: every operand in three pieces and six piece pairs
@@ -111,27 +109,17 @@
 //
 // Backward, input (K5), in two passes, each element a gather with no float atomics
 // (the TPU kernel's packed dY4 @ W0big^T scatters through the packing instead), so
-// two runs are bit-identical:
-//   1. dpre1 = g1 * elu'(a1) [B, P/4, P/4, F1] to device memory, float32 in either
-//      storage type (20.6 MB at B = 420).  float32: head_dpre1_kernel, one block per
-//      tile, both stages on the CUDA cores.
-//   2. Per 32 x 32 input tile.  Its inputs reach stage-0 positions of the same
-//      18 x 18 halo tile as the forward's, which reach a 10 x 10 tile of dpre1.
-//      float32 (head_dx_kernel, one block per tile, CUDA cores): the block stages the
-//      38 x 38 window, recomputes elu'(a0) on the halo tile, gathers dpre0 = elu'(a0) *
-//      conv1^T(dpre1) there (zero on the padding ring) and gathers dx = conv0^T(dpre0)
-//      for its 32 x 32 x C inputs.
-//
-// Backward, input, bfloat16 (tc::dpre1_tc_kernel, tc::head_dx_tc_kernel): both passes
-// on the tensor cores, each a fixed grid walking the tiles with the next tile's loads
-// in flight (cp.async, two buffers).
-//   1. K4 bf16's stage 0 (e0 only) and stage 1 (the same device functions), storing
-//      dpre1 in float32.
-//   2. Per 32 x 32 input tile: the bf16 window and dpre1's 10 x 10 halo (zeros outside
-//      the image) arrive by cp.async; the halo goes to shared memory as three exact
-//      bf16 pieces, F1 padded to 16.  Stage 0 runs in K4's class order, elu'(a0) kept
-//      in registers (0 on the ring).  d e0 is K4's gather per class m-tile, four tap
-//      slots x 3 pieces, except that a position (cls_y + 2 qy, cls_x + 2 qx) takes
+// two runs are bit-identical; both passes on the tensor cores in both dtypes, each a
+// fixed grid walking the tiles with the next tile's loads in flight (cp.async).
+//   1. tc::dpre1_tc_kernel: K3's kernel (tc::fwd_tiles, its grid, shared memory and
+//      blocks per SM) with the other epilogue, dpre1 = g1 * elu'(a1 + b1) stored in
+//      float32 in either storage type [B, P/4, P/4, F1] (20.6 MB at B = 420; the TPU
+//      kernel's z1 scratch is float32).
+//   2. tc::head_dx_tc_kernel, per 32 x 32 input tile: the window and dpre1's 10 x 10
+//      halo (zeros outside the image) arrive by cp.async; the halo goes to shared memory
+//      as three exact bf16 pieces, F1 padded to 16.  Stage 0 runs in K4's class order,
+//      elu'(a0) kept in registers (0 on the ring).  d e0 is K4's gather per class
+//      m-tile, four tap slots, except that a position (cls_y + 2 qy, cls_x + 2 qx) takes
 //      halo row (qy + 1 - s / 2, qx + 1 - s % 2), always inside the halo.  dpre0 = d e0
 //      * elu'(a0) goes in three pieces to shared memory for all 324 positions
 //      ([3][324][8] bf16), since dx needs positions across classes.  dx is a product
@@ -139,9 +127,27 @@
 //      one m-tile per class row; every pixel of a class takes the same four taps, ky =
 //      1 - ry % 2 + 2 ty at stage-0 row ry / 2 + 1 + ry % 2 - ty, and likewise in x, so
 //      the A rows are dpre0 rows picked by address.  A k-step pairs two taps (K = 2 x
-//      8 f0), B is w0 for that pair [16 x C padded to 8]: 2 k-steps x 3 pieces per
-//      m-tile, each product from zero and added in float32, the sum rounded once to
-//      bf16 and staged so that whole pixels leave in 16-byte stores.
+//      8 f0), B is w0 for that pair [16 x C padded to 8]: 2 k-steps per m-tile, each
+//      product from zero and added in float32, the sum rounded once to T and staged so
+//      that whole pixels leave in 16-byte stores.
+//      bf16: two bf16 windows (one per buffer); the d e0 gather and the dx product run
+//      one product per piece of dpre1 and dpre0 against the exact bf16 weights.
+//      float32: as float32 K4, the window arrives as float32 in one raw buffer that each
+//      thread splits into three pieces, and every operand is in three pieces (x, w0 and
+//      w1 split once per block into the lane-order fragments, dpre1, dpre0); stage 0,
+//      the gather and the dx product run the six pairs of mma_pairs, and dx leaves
+//      unrounded.  The dx staging tile (16 KB at C = 4) takes the window pieces' space,
+//      free after stage 0, so that two blocks fit on an SM.  Five block-wide syncs a tile.
+//   Budgets (ptxas_report, no spills): pass 1 is K3's kernel, with 72 / 80 registers
+//   in bf16 and 75 / 75 in float32 (C = 4 / 8).  Pass 2, bf16: 73,312 / 105,632 bytes
+//   of shared memory, 124 / 128 registers, two blocks per SM.  Pass 2, float32: 114,112
+//   bytes at C = 4 (window pieces 34,656, raw window 23,104, two raw dpre1 halos 9,600,
+//   dpre1 pieces 9,600, dpre0 pieces 15,552, fragments 21,504: w0 3,072, w1 for the
+//   gather 12,288, w0 for dx 6,144; biases 96; stage 1's unused fragments in dpre0's
+//   space), 118 registers, two blocks per SM; 174,944 bytes and 125 registers at C = 8,
+//   one block.  Tried on the card at C = 4 and dropped: one block per SM (slower), the
+//   gather's slot loop unrolled (spills, slower), dx stored from the accumulators
+//   without the staging tile (no faster).
 //
 // Bound on the H100 at the main path's shapes (B=420, P=128, C=4), float32: the
 // forward reads 110.1 MB and writes 20.6 MB (39 us at 3.35 TB/s) and does 3.08 GFLOP,
@@ -150,7 +156,10 @@
 // the weight backward reads 130.7 MB and does 7.5 GFLOP, which take 45 us on the tensor
 // cores at float32's accuracy (six bf16 piece pairs each, 44.9 GFLOP at 989 TFLOP/s;
 // 112 us on the FP32 units), bound by operations; the input backward moves 240.8 MB
-// (72 us) and does 6.17 GFLOP (92 us), bound by operations.  bfloat16: the forward and
+// (72 us) and does 6.17 GFLOP, which take 37 us on the tensor cores at float32's
+// accuracy (six bf16 piece pairs each, 37 GFLOP; 92 us on the FP32 units), bound by
+// bytes, and its two passes move 392.2 MB (x twice, g1, the float32 dpre1 written and
+// read, dx; 117 us).  bfloat16: the forward and
 // the weight backward each move 65.4 MB (x 55.05 MB plus the output or g1, 10.32 MB:
 // 19.5 us), and their 3.08 and 7.5 GFLOP take 3.1 and 7.6 us on the bf16 tensor cores
 // (989 TFLOP/s; bf16 products are exact in a float32 sum), so both are bound by bytes;
@@ -163,7 +172,9 @@
 // (the windows' copies and splits, the ldmatrix and fragment loads, e0): at 128 bytes a
 // clock and 1.98 GHz, with 51 tiles per SM, 28 and 94 us before bank conflicts, which
 // stage 0's and stage 1's ldmatrix rows (32 bytes apart) make two-way; an estimate, not
-// a measurement.  float32 K5 runs on the CUDA cores, whose float32 arithmetic binds it.
+// a measurement.  float32 K5 runs 2,880 tensor-core products a tile at C = 4 (pass 1
+// K3's 960, pass 2 1,920: stage 0 and the gather 576 each, dx 768; with the six pairs
+// and the padding 79.3 GFLOP, 80 us at 989 TFLOP/s), more than its byte bound.
 // float32 K4 runs 2,496 tensor-core products a tile at C = 4 (with the six pairs and the
 // padding 68.7 GFLOP, 69 us at 989 TFLOP/s) and moves its 130.7 MB once (39 us); like
 // bf16 K4 it is bound by what is left on the CUDA cores, and has more of it: four
@@ -190,24 +201,12 @@ constexpr int kTD = kT1 + 2;           // dpre1 tile edge of the input backward:
 constexpr int kTX = 4 * kT1;           // input tile edge of the input backward: 32
 constexpr int kThreads = 256;
 constexpr int kBwdBlocks = 264;        // fixed, so the summation order never changes
-constexpr int kGroups = kThreads / (kT1 * kT1);   // 4 channel groups in stage 1
-constexpr int kPerGroup = kF1 / kGroups;          // 3 stage-1 channels per thread
-static_assert(kF1 % kGroups == 0, "stage-1 channel split");
 
 template <int C>
-struct Layout {
-  static constexpr int xw = kXW * kXW * C;          // input window
-  static constexpr int w0 = 16 * C * kF0;           // [tap][c][f0]
-  static constexpr int w1 = 16 * kF0 * kF1;         // [tap][f0][f1]
-  static constexpr int s0 = kT0 * kT0 * kF0;        // stage-0 tile
-  static constexpr int dp = kTD * kTD * kF1;        // dpre1 tile of the input backward
+struct Layout {   // the gradient vector [dW0 (OIHW) | db0 | dW1 (OIHW) | db1]
   static constexpr int nacc = 16 * C * kF0 + kF0 + 16 * kF0 * kF1 + kF1;
-  // offsets of the gradient vector [dW0 (OIHW) | db0 | dW1 (OIHW) | db1]
   static constexpr int oW0 = 0, oB0 = 16 * C * kF0, oW1 = oB0 + kF0,
                        oB1 = oW1 + 16 * kF0 * kF1;
-  static constexpr size_t fwd_bytes = sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + s0);
-  static constexpr size_t dx_bytes =
-      sizeof(float) * (xw + w0 + kF0 + w1 + kF1 + 2 * s0 + dp);
 };
 
 struct Tile {
@@ -221,117 +220,6 @@ __device__ __forceinline__ Tile decode_tile(int t, int tps) {
   r.ty = rem / tps;
   r.tx = rem % tps;
   return r;
-}
-
-template <int C, typename T>
-__device__ void load_weights(const T* __restrict__ w0, const T* __restrict__ b0,
-                             const T* __restrict__ w1, const T* __restrict__ b1,
-                             float* w0s, float* b0s, float* w1s, float* b1s) {
-  lshm::load_conv_s2_weights<C, kF0>(w0, b0, w0s, b0s);
-  for (int i = threadIdx.x; i < 16 * kF0 * kF1; i += blockDim.x) {
-    const int tap = i % 16, f0 = (i / 16) % kF0, f1 = i / (16 * kF0);
-    w1s[(tap * kF0 + f0) * kF1 + f1] = lshm::to_f32(w1[i]);
-  }
-  if (threadIdx.x < kF1) b1s[threadIdx.x] = lshm::to_f32(b1[threadIdx.x]);
-}
-
-// Input window rows/cols [32 ty - 3, 32 ty + 35) of sample n; zero outside the image.
-template <int C, typename T>
-__device__ void load_window(const T* __restrict__ x, int P, Tile t, float* xw) {
-  lshm::load_window<C, kXW>(x, P, t.n, 32 * t.ty - 3, 32 * t.tx - 3, xw);
-}
-
-// Stage 0 on the 18 x 18 tile: e0 = elu(a0) rounded to T inside the image, 0 on the
-// padding ring; if d0 is given it receives elu'(a0) of the unrounded a0 inside and 0
-// outside.
-template <int C, typename T>
-__device__ void stage0(const float* xw, const float* w0s, const float* b0s, int H0, Tile t,
-                       float* e0, float* d0) {
-  for (int pos = threadIdx.x; pos < kT0 * kT0; pos += blockDim.x) {
-    const int py = pos / kT0, px = pos % kT0;
-    const int y0 = 16 * t.ty - 1 + py, x0 = 16 * t.tx - 1 + px;
-    float* e = e0 + pos * kF0;
-    if (y0 < 0 || y0 >= H0 || x0 < 0 || x0 >= H0) {
-#pragma unroll
-      for (int f = 0; f < kF0; ++f) {
-        e[f] = 0.0f;
-        if (d0) d0[pos * kF0 + f] = 0.0f;
-      }
-      continue;
-    }
-    float acc[kF0];
-    lshm::conv_s2_taps<C, kF0, kXW>(xw, w0s, py, px, acc);
-#pragma unroll
-    for (int f = 0; f < kF0; ++f) {
-      const float a = acc[f] + b0s[f];
-      e[f] = lshm::round_to<T>(lshm::elu(a));
-      if (d0) d0[pos * kF0 + f] = lshm::elu_grad(a);
-    }
-  }
-}
-
-// Stage-1 pre-activations for this thread's output position and channel group.
-// Returns false when the position lies outside the image.
-__device__ __forceinline__ bool stage1(const float* e0, const float* w1s, const float* b1s,
-                                       int H1, Tile t, float a1[kPerGroup]) {
-  const int p = threadIdx.x % (kT1 * kT1), grp = threadIdx.x / (kT1 * kT1);
-  const int oyl = p / kT1, oxl = p % kT1;
-  if (kT1 * t.ty + oyl >= H1 || kT1 * t.tx + oxl >= H1) return false;
-#pragma unroll
-  for (int j = 0; j < kPerGroup; ++j) a1[j] = 0.0f;
-#pragma unroll
-  for (int ky = 0; ky < 4; ++ky) {
-#pragma unroll
-    for (int kx = 0; kx < 4; ++kx) {
-      const float* sp = e0 + ((2 * oyl + ky) * kT0 + 2 * oxl + kx) * kF0;
-      const float* wp = w1s + (ky * 4 + kx) * kF0 * kF1 + grp * kPerGroup;
-#pragma unroll
-      for (int f0 = 0; f0 < kF0; ++f0) {
-        const float v = sp[f0];
-#pragma unroll
-        for (int j = 0; j < kPerGroup; ++j) a1[j] += v * wp[f0 * kF1 + j];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kPerGroup; ++j) a1[j] += b1s[grp * kPerGroup + j];
-  return true;
-}
-
-__device__ __forceinline__ size_t out_index(Tile t, int H1) {
-  const int p = threadIdx.x % (kT1 * kT1), grp = threadIdx.x / (kT1 * kT1);
-  const int oy = kT1 * t.ty + p / kT1, ox = kT1 * t.tx + p % kT1;
-  return (((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + grp * kPerGroup;
-}
-
-// The first pass of float32 K5: dpre1 = g1 * elu'(a1) in float32, both stages on the
-// CUDA cores (one block per tile).
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-head_dpre1_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                  const float* __restrict__ b0, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ g1, int P,
-                  int tps, float* __restrict__ out) {
-  using L = Layout<C>;
-  extern __shared__ float4 smem4[];
-  float* xw = reinterpret_cast<float*>(smem4);
-  float* w0s = xw + L::xw;
-  float* b0s = w0s + L::w0;
-  float* w1s = b0s + kF0;
-  float* b1s = w1s + L::w1;
-  float* e0 = b1s + kF1;
-  const Tile t = decode_tile(blockIdx.x, tps);
-  load_weights<C>(w0, b0, w1, b1, w0s, b0s, w1s, b1s);
-  load_window<C>(x, P, t, xw);
-  __syncthreads();
-  stage0<C, float>(xw, w0s, b0s, P / 2, t, e0, nullptr);
-  __syncthreads();
-  float a1[kPerGroup];
-  if (stage1(e0, w1s, b1s, P / 4, t, a1)) {
-    const size_t o = out_index(t, P / 4);
-#pragma unroll
-    for (int j = 0; j < kPerGroup; ++j) out[o + j] = g1[o + j] * lshm::elu_grad(a1[j]);
-  }
 }
 
 // ---- Backward, weights, bfloat16 (K4 bf16) on the tensor cores ----
@@ -1118,10 +1006,11 @@ head_bwd_f32_tc_kernel(const float* __restrict__ x, const float* __restrict__ w0
                     partial + (size_t)blockIdx.x * L::nacc);
 }
 
-// ---- Forward (K3) on the tensor cores, both dtypes ----
+// ---- Forward (K3) and the first pass of K5 on the tensor cores, both dtypes ----
 //
 // K4's stage 0 (e0 only) and stage 1 on a fixed grid walking the tiles, the next tile's
-// window in flight; out = elu(a1 + b1) rounded to T.  The header gives the design.
+// window in flight, with one of two epilogues: K3's out = elu(a1 + b1) rounded to T, or
+// K5's dpre1 = g1 elu'(a1 + b1) in float32.  The header gives the design.
 
 constexpr int kSMs = 132;                  // the H100's: the fixed grids fill every SM
 // resident blocks per SM of the bf16 forward: three (ptxas: 71 and 80 registers at C =
@@ -1156,12 +1045,18 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int C, typename T>
-__global__ void __launch_bounds__(kThreads, FwdSmem<C, T>::per_sm)
-head_fwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ w0,
-                   const T* __restrict__ b0, const T* __restrict__ w1,
-                   const T* __restrict__ b1, int P, int tps, int ntiles,
-                   T* __restrict__ out) {
+// The tiles of this block: out = elu(a1 + b1) in T (K3), or with kDpre1, dpre1 = g1
+// elu'(a1 + b1) in float32 (K5's first pass; g1 read by stage 1).
+template <int C, typename T, bool kDpre1>
+__device__ __forceinline__ void fwd_tiles(const T* __restrict__ x,
+                                          const T* __restrict__ w0,
+                                          const T* __restrict__ b0,
+                                          const T* __restrict__ w1,
+                                          const T* __restrict__ b1,
+                                          const T* __restrict__ g1, int P, int tps,
+                                          int ntiles,
+                                          std::conditional_t<kDpre1, float, T>*
+                                              __restrict__ out) {
   using S = FwdSmem<C, T>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
@@ -1206,76 +1101,50 @@ head_fwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     stage0_tc<C, T, true, false>(kF32 ? win : win + buf * S::win, w0f, b0s, H0, t, e0,
                                  nullptr);
     __syncthreads();
-    float acc[4];
-    stage1_tc<T>(e0, w1f, acc);
+    float acc[4], gv[2][2];
+    if constexpr (kDpre1) {
+      stage1_tc(e0, w1f, g1, H1, t, acc, gv);
+    } else {
+      stage1_tc<T>(e0, w1f, acc);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
-      if (in1(t, H1, row, f1))
-        store_pair(out + out1(t, H1, row, f1), lshm::elu(acc[2 * h] + b1s[f1]),
-                   lshm::elu(acc[2 * h + 1] + b1s[f1 + 1]));
+      if constexpr (kDpre1) {
+        if (in1(t, H1, row, f1))
+          store_pair(out + out1(t, H1, row, f1),
+                     gv[h][0] * lshm::elu_grad(acc[2 * h] + b1s[f1]),
+                     gv[h][1] * lshm::elu_grad(acc[2 * h + 1] + b1s[f1 + 1]));
+      } else {
+        if (in1(t, H1, row, f1))
+          store_pair(out + out1(t, H1, row, f1), lshm::elu(acc[2 * h] + b1s[f1]),
+                     lshm::elu(acc[2 * h + 1] + b1s[f1 + 1]));
+      }
     }
   }
   cp_async_wait_all();
 }
 
-// ---- Backward, input, bfloat16 (K5 bf16) on the tensor cores, in two passes ----
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads, FwdSmem<C, T>::per_sm)
+head_fwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ w0,
+                   const T* __restrict__ b0, const T* __restrict__ w1,
+                   const T* __restrict__ b1, int P, int tps, int ntiles,
+                   T* __restrict__ out) {
+  fwd_tiles<C, T, false>(x, w0, b0, w1, b1, nullptr, P, tps, ntiles, out);
+}
 
-// resident blocks per SM of each pass: pass 1 fits three (72 registers at C = 4), pass 2
-// two (125; three blocks of 256 threads would cap it at 80 and force spills); the grids
-// hold that many on the H100's SMs
-constexpr int kDpre1PerSM = 3, kDxPerSM = 2;
+// ---- Backward, input (K5) on the tensor cores, both dtypes, in two passes ----
 
-// Pass 1: dpre1 = g1 * elu'(a1) in float32 to device memory; K4 bf16's tiles and their
-// order, shared-memory layout (its dp1 and stg unused), double-buffered window, stage 0
-// (e0 only) and stage 1.
-template <int C>
-__global__ void __launch_bounds__(kThreads, kDpre1PerSM)
-dpre1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                const bf16* __restrict__ b0, const bf16* __restrict__ w1,
-                const bf16* __restrict__ b1, const bf16* __restrict__ g1, int P, int tps,
-                int ntiles, float* __restrict__ dpre1) {
-  using S = Smem<C>;
-  extern __shared__ float4 smem4[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
-  bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
-  bf16* e0 = reinterpret_cast<bf16*>(sm + S::oE0);
-  uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
-  uint2* w1f = reinterpret_cast<uint2*>(sm + S::oW1f);
-  uint2* w1g = reinterpret_cast<uint2*>(sm + S::oW1g);
-  float* b0s = reinterpret_cast<float*>(sm + S::oBias);
-  float* b1s = b0s + kF0;
-  const int H0 = P / 2, H1 = P / 4;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
-  const int mt = warp / 2, nt = warp % 2;
-
-  if (blockIdx.x < ntiles) load_window_async<C>(x, P, decode_tile(blockIdx.x, tps), win);
-  cp_async_commit();
-  load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
-
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
-    const Tile t = decode_tile(tile, tps);
-    cp_async_wait_all();
-    __syncthreads();                       // window t in; tile t - 1 done with e0
-    if (tile + (int)gridDim.x < ntiles)
-      load_window_async<C>(x, P, decode_tile(tile + gridDim.x, tps),
-                           win + (buf ^ 1) * S::win);
-    cp_async_commit();
-    stage0_tc<C, bf16, true, false>(win + buf * S::win, w0f, b0s, H0, t, e0, nullptr);
-    __syncthreads();
-    float acc[4], gv[2][2];
-    stage1_tc(e0, w1f, g1, H1, t, acc, gv);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * mt + g + 8 * h, f1 = 8 * nt + 2 * q;
-      if (in1(t, H1, row, f1))
-        *reinterpret_cast<float2*>(dpre1 + out1(t, H1, row, f1)) =
-            make_float2(gv[h][0] * lshm::elu_grad(acc[2 * h] + b1s[f1]),
-                        gv[h][1] * lshm::elu_grad(acc[2 * h + 1] + b1s[f1 + 1]));
-    }
-  }
-  cp_async_wait_all();
+// Pass 1: dpre1 = g1 * elu'(a1) in float32 to device memory, K3's kernel with the other
+// epilogue (its grid, shared memory and blocks per SM).
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads, FwdSmem<C, T>::per_sm)
+dpre1_tc_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
+                const T* __restrict__ w1, const T* __restrict__ b1,
+                const T* __restrict__ g1, int P, int tps, int ntiles,
+                float* __restrict__ dpre1) {
+  fwd_tiles<C, T, true>(x, w0, b0, w1, b1, g1, P, tps, ntiles, dpre1);
 }
 
 // Pass 2: one 32 x 32 input tile at a time (the inputs of stage-1 tile (ty, tx)); its
@@ -1285,22 +1154,37 @@ constexpr int kHalo = kTD * kTD;           // 100 dpre1 positions
 constexpr int kDxTiles = 4 * (kTX / 2);    // 64 dx m-tiles: 4 parity classes x 16 rows
 static_assert(kDxTiles % kWarps == 0, "dx m-tiles per warp");
 
-template <int C>
+template <int C, typename T>
 struct DxSmem {   // byte offsets; every array 16-byte aligned
-  static constexpr int win = kXW * kXW * C;                       // bf16, one buffer
-  static constexpr int oWin = 0;                                  // [2][38][38][C]
-  static constexpr int oRaw = oWin + 2 * 2 * win;                 // [2][100][12] float
-  static constexpr int oDp1 = oRaw + 2 * 4 * kHalo * kF1;         // [3][100][16] bf16
+  static constexpr int kPc = kPiecesOf<T>;
+  static constexpr int win = kXW * kXW * C;                       // elements of a piece
+  // bf16: two windows [2][38][38][C]; float32: the pieces [3][38][38][C] and one raw
+  // float32 window that the next tile's arrives in
+  static constexpr int oWin = 0;
+  static constexpr int oRaw = oWin + 2 * (kPc == 1 ? 2 : kPieces) * win;
+  static constexpr int oRawD = oRaw + (kPc == 1 ? 0 : 4 * win);  // [2][100][12] float
+  static constexpr int oDp1 = oRawD + 2 * 4 * kHalo * kF1;        // [3][100][16] bf16
   static constexpr int oDp0 = oDp1 + 2 * kPieces * kHalo * kF1P;  // [3][324][8] bf16
-  static constexpr int oDx = oDp0 + 2 * kPieces * kPos0 * kF0;    // [32][32][C] bf16
-  static constexpr int oW0f = oDx + 2 * kTX * kTX * C;            // [C][32] uint2
-  static constexpr int oW1g = oW0f + 8 * C * 32;                  // [16][32] uint2
-  static constexpr int oW0x = oW1g + 8 * 16 * 32;                 // [4][2][32] uint2
-  static constexpr int oBias = oW0x + 8 * 8 * 32;                 // b0 [8], b1 [16]
+  // dx staged [32][32][C] in T: bf16 in its own array, float32 in the window's pieces,
+  // which only stage 0 reads
+  static constexpr int oDx = kPc == 1 ? oDp0 + 2 * kPieces * kPos0 * kF0 : oWin;
+  static constexpr int oW0f = kPc == 1 ? oDx + 2 * kTX * kTX * C
+                                       : oDp0 + 2 * kPieces * kPos0 * kF0;  // [kPc][C][32]
+  static constexpr int oW1g = oW0f + 8 * kPc * C * 32;            // [kPc][16][32] uint2
+  static constexpr int oW0x = oW1g + 8 * kPc * 16 * 32;           // [kPc][4][2][32] uint2
+  static constexpr int oBias = oW0x + 8 * kPc * 8 * 32;           // b0 [8], b1 [16]
   static constexpr int bytes = oBias + 4 * (kF0 + kF1P);
-  static_assert(oRaw % 16 == 0 && oDp1 % 16 == 0 && oDp0 % 16 == 0 && oDx % 16 == 0 &&
-                oW0f % 16 == 0, "16-byte aligned rows for cp.async and ldmatrix");
-  static_assert(2 * kPieces * kPos0 * kF0 >= 8 * 2 * 8 * 32, "stage 1's fragments in dp0");
+  // resident blocks per SM: two (bf16 125 registers; float32 114,112 bytes at C = 4),
+  // one for float32 at C = 8
+  static constexpr int per_sm = kPc == 1 || C == 4 ? 2 : 1;
+  static_assert(per_sm * (bytes + 1024) <= 228 * 1024, "blocks per SM fit");
+  static_assert(kPc == 1 || 4 * kTX * kTX * C <= 2 * kPieces * win,
+                "float32 dx staging fits in the window's pieces");
+  static_assert(2 * kPieces * kPos0 * kF0 >= 8 * kPc * 16 * 32,
+                "stage 1's fragments in dp0");
+  static_assert(oRaw % 16 == 0 && oRawD % 16 == 0 && oDp1 % 16 == 0 && oDp0 % 16 == 0 &&
+                oDx % 16 == 0 && oW0f % 16 == 0 && (2 * win) % 16 == 0,
+                "16-byte aligned rows for cp.async and ldmatrix");
 };
 
 // dpre1's 10 x 10 halo of tile t into raw [100][12], asynchronously: 16 bytes a copy,
@@ -1317,37 +1201,65 @@ __device__ void load_dpre1_async(const float* __restrict__ dpre1, int H1, Tile t
   }
 }
 
-// B fragments of the dx product, in lane order: w0x[cls][s] for parity class cls =
-// (ry % 2, rx % 2) and k-step s: k = (tap (s, 0) by f0 | tap (s, 1) by f0), n = c,
-// where tap (ty, tx) is ky = 1 - ry % 2 + 2 ty, kx = 1 - rx % 2 + 2 tx; c >= C is 0.
-template <int C>
-__device__ void load_dx_fragments(const bf16* __restrict__ w0, uint2* w0x) {
-  const bf16 zero = __float2bfloat16_rn(0.0f);
+// The dpre1 halo raw [100][12] into three exact bf16 pieces dp1 [3][100][16] (f1 12 ..
+// 15 left as they are), four channels a thread.
+__device__ __forceinline__ void split_halo(const float* raw, bf16* dp1) {
+  for (int i = threadIdx.x; i < kHalo * 3; i += blockDim.x) {
+    const int pos = i / 3, f1 = 4 * (i % 3);
+    const float4 v = *reinterpret_cast<const float4*>(raw + pos * kF1 + f1);
+    float pc[4][kPieces];
+    split3(v.x, pc[0]);
+    split3(v.y, pc[1]);
+    split3(v.z, pc[2]);
+    split3(v.w, pc[3]);
+#pragma unroll
+    for (int k = 0; k < kPieces; ++k)
+      *reinterpret_cast<uint2*>(dp1 + (k * kHalo + pos) * kF1P + f1) =
+          make_uint2(pack(pc[0][k], pc[1][k]), pack(pc[2][k], pc[3][k]));
+  }
+}
+
+// B fragments of the dx product, in lane order, piece p of each (one piece for bf16
+// weights, three for float32): w0x[p][cls][s] for parity class cls = (ry % 2, rx % 2)
+// and k-step s: k = (tap (s, 0) by f0 | tap (s, 1) by f0), n = c, where tap (ty, tx) is
+// ky = 1 - ry % 2 + 2 ty, kx = 1 - rx % 2 + 2 tx; c >= C is 0.
+template <int C, typename T>
+__device__ void load_dx_fragments(const T* __restrict__ w0, uint2* w0x) {
+  constexpr int kPc = kPiecesOf<T>;
   auto W0 = [&](int f0, int c, int ky, int kx) {
-    return c < C ? w0[((f0 * C + c) * 4 + ky) * 4 + kx] : zero;
+    return c < C ? lshm::to_f32(w0[((f0 * C + c) * 4 + ky) * 4 + kx]) : 0.0f;
   };
   for (int i = threadIdx.x; i < 8 * 32; i += blockDim.x) {
     const int lane = i % 32, cls = i / 64, s = (i / 32) % 2, g = lane / 4, q = lane % 4;
     const int ky = 1 - (cls >> 1) + 2 * s, kx0 = 1 - (cls & 1), kx1 = kx0 + 2;
-    w0x[i] = make_uint2(pack(W0(2 * q, g, ky, kx0), W0(2 * q + 1, g, ky, kx0)),
-                        pack(W0(2 * q, g, ky, kx1), W0(2 * q + 1, g, ky, kx1)));
+    const float v[4] = {W0(2 * q, g, ky, kx0), W0(2 * q + 1, g, ky, kx0),
+                        W0(2 * q, g, ky, kx1), W0(2 * q + 1, g, ky, kx1)};
+    float pc[4][kPc];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<kPc>(v[e], pc[e]);
+#pragma unroll
+    for (int p = 0; p < kPc; ++p)
+      w0x[p * 8 * 32 + i] = make_uint2(pack(pc[0][p], pc[1][p]), pack(pc[2][p], pc[3][p]));
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, kDxPerSM)
-head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                  const bf16* __restrict__ b0, const bf16* __restrict__ w1,
-                  const bf16* __restrict__ b1, const float* __restrict__ dpre1, int P,
-                  int tps, int ntiles, bf16* __restrict__ dx) {
-  using S = DxSmem<C>;
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads, DxSmem<C, T>::per_sm)
+head_dx_tc_kernel(const T* __restrict__ x, const T* __restrict__ w0,
+                  const T* __restrict__ b0, const T* __restrict__ w1,
+                  const T* __restrict__ b1, const float* __restrict__ dpre1, int P,
+                  int tps, int ntiles, T* __restrict__ dx) {
+  using S = DxSmem<C, T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kPc = kPiecesOf<T>;
   extern __shared__ float4 smem4[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
   bf16* win = reinterpret_cast<bf16*>(sm + S::oWin);
   float* raw = reinterpret_cast<float*>(sm + S::oRaw);
+  float* rawd = reinterpret_cast<float*>(sm + S::oRawD);
   bf16* dp1 = reinterpret_cast<bf16*>(sm + S::oDp1);
   bf16* dp0 = reinterpret_cast<bf16*>(sm + S::oDp0);
-  bf16* dxs = reinterpret_cast<bf16*>(sm + S::oDx);
+  T* dxs = reinterpret_cast<T*>(sm + S::oDx);
   uint2* w0f = reinterpret_cast<uint2*>(sm + S::oW0f);
   // load_fragments also writes stage 1's fragments, which this kernel never reads:
   // they go to dp0's space, which the first tile writes only after a block-wide sync
@@ -1359,11 +1271,16 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   const int H0 = P / 2, H1 = P / 4;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
 
-  if (blockIdx.x < ntiles) {
-    const Tile t = decode_tile(blockIdx.x, tps);
-    load_window_async<C>(x, P, t, win);
-    load_dpre1_async(dpre1, H1, t, raw);
-  }
+  auto load = [&](int tile, int buf) {     // tile's window and dpre1 halo
+    const Tile t = decode_tile(tile, tps);
+    if constexpr (kF32) {
+      load_window_f32_async<C>(x, P, t, raw);
+    } else {
+      load_window_async<C>(x, P, t, win + buf * S::win);
+    }
+    load_dpre1_async(dpre1, H1, t, rawd + buf * kHalo * kF1);
+  };
+  if (blockIdx.x < ntiles) load(blockIdx.x, 0);
   cp_async_commit();
   load_fragments<C>(w0, b0, w1, b1, w0f, w1f, w1g, b0s, b1s);
   load_dx_fragments<C>(w0, w0x);
@@ -1373,33 +1290,20 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
   int buf = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, buf ^= 1) {
     const Tile t = decode_tile(tile, tps);
-    const float* rawt = raw + buf * kHalo * kF1;
     cp_async_wait_all();
     __syncthreads();                       // tile t in; tile t - 1 done with dp0, dxs
-    if (tile + (int)gridDim.x < ntiles) {
-      const Tile tn = decode_tile(tile + gridDim.x, tps);
-      load_window_async<C>(x, P, tn, win + (buf ^ 1) * S::win);
-      load_dpre1_async(dpre1, H1, tn, raw + (buf ^ 1) * kHalo * kF1);
+    if constexpr (kF32) {
+      split_window<C>(raw, win);           // its own copies: visible after its wait
+      __syncthreads();                     // the window's pieces in; raw free
     }
+    if (tile + (int)gridDim.x < ntiles) load(tile + gridDim.x, buf ^ 1);
     cp_async_commit();
 
-    // the dpre1 halo in three exact bf16 pieces, four channels a thread
-    for (int i = tid; i < kHalo * 3; i += blockDim.x) {
-      const int pos = i / 3, f1 = 4 * (i % 3);
-      const float4 v = *reinterpret_cast<const float4*>(rawt + pos * kF1 + f1);
-      float pc[4][kPieces];
-      split3(v.x, pc[0]);
-      split3(v.y, pc[1]);
-      split3(v.z, pc[2]);
-      split3(v.w, pc[3]);
-#pragma unroll
-      for (int k = 0; k < kPieces; ++k)
-        *reinterpret_cast<uint2*>(dp1 + (k * kHalo + pos) * kF1P + f1) =
-            make_uint2(pack(pc[0][k], pc[1][k]), pack(pc[2][k], pc[3][k]));
-    }
+    split_halo(rawd + buf * kHalo * kF1, dp1);
     // stage 0 on this warp's three class m-tiles: elu'(a0) kept
     float d0[kMtPerWarp][4];
-    stage0_tc<C, bf16, false, true>(win + buf * S::win, w0f, b0s, H0, t, nullptr, d0);
+    stage0_tc<C, T, false, true>(kF32 ? win : win + buf * S::win, w0f, b0s, H0, t, nullptr,
+                                 d0);
     __syncthreads();
 
     // d e0 per class m-tile: four tap slots, the A rows dpre1 halo rows picked by
@@ -1411,16 +1315,29 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
       const bool valid = r < kClassPos;    // padding rows: position (0, 0)'s rows, d0 0
       const int qy = valid ? r / kHalf : 0, qx = valid ? r % kHalf : 0;
       float acc[4] = {};
-#pragma unroll
+      constexpr int kUnroll = kPc == 1 ? 4 : 1;   // float32: fewer registers live
+#pragma unroll (kUnroll)
       for (int s = 0; s < 4; ++s) {        // slot s: ky = py % 2 + 2 (s / 2), kx likewise
         const int hrow = (qy + 1 - s / 2) * kTD + qx + 1 - s % 2;
         const int tap = ((cls >> 1) + 2 * (s / 2)) * 4 + (cls & 1) + 2 * (s % 2);
-        const uint2 b = w1g[tap * 32 + lane];
+        const unsigned arow = saddr(dp1 + hrow * kF1P + 8 * (lane / 16));
+        if constexpr (kPc == 1) {
+          const uint2 b = w1g[tap * 32 + lane];
 #pragma unroll
-        for (int k = 0; k < kPieces; ++k) {
-          unsigned a[4];
-          ldsm_x4(saddr(dp1 + (k * kHalo + hrow) * kF1P + 8 * (lane / 16)), a);
-          mma(acc, a, b.x, b.y);
+          for (int k = 0; k < kPieces; ++k) {
+            unsigned a[4];
+            ldsm_x4(arow + 2 * k * kHalo * kF1P, a);
+            mma(acc, a, b.x, b.y);
+          }
+        } else {
+          unsigned a[kPieces][4];
+          uint2 b[kPieces];
+#pragma unroll
+          for (int k = 0; k < kPieces; ++k) {
+            ldsm_x4(arow + 2 * k * kHalo * kF1P, a[k]);
+            b[k] = w1g[(k * 16 + tap) * 32 + lane];
+          }
+          mma_pairs(acc, a, b);
         }
       }
 #pragma unroll
@@ -1444,7 +1361,8 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     // pixels b = rx / 2; every pixel of the class takes taps (ty, tx), ky = 1 - ry % 2
     // + 2 ty, at stage-0 position (a + 1 + ry % 2 - ty, b + 1 + rx % 2 - tx).  K-step
     // s pairs taps (s, 0) and (s, 1); each product starts from zero and is added in
-    // float32, and the sum is rounded once.
+    // float32 (bf16: one per piece of dpre0; float32: mma_pairs), and the sum is
+    // rounded once to T.
 #pragma unroll
     for (int j = 0; j < kDxTiles / kWarps; ++j) {
       const int mt = warp + kWarps * j, cls = mt / (kTX / 2), a = mt % (kTX / 2);
@@ -1454,36 +1372,46 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
       for (int s = 0; s < 2; ++s) {
         const int py = a + 1 + cy - s, px = lane % 16 + 1 + cx - lane / 16;
         const unsigned arow = saddr(dp0 + (py * kT0 + px) * kF0);
-        const uint2 b = w0x[(cls * 2 + s) * 32 + lane];
+        if constexpr (kPc == 1) {
+          const uint2 b = w0x[(cls * 2 + s) * 32 + lane];
 #pragma unroll
-        for (int k = 0; k < kPieces; ++k) {
-          unsigned af[4];
-          ldsm_x4(arow + 2 * k * kPos0 * kF0, af);
-          float part[4] = {};
-          mma(part, af, b.x, b.y);
+          for (int k = 0; k < kPieces; ++k) {
+            unsigned af[4];
+            ldsm_x4(arow + 2 * k * kPos0 * kF0, af);
+            float part[4] = {};
+            mma(part, af, b.x, b.y);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i] += part[i];
+            for (int i = 0; i < 4; ++i) acc[i] += part[i];
+          }
+        } else {
+          unsigned af[kPieces][4];
+          uint2 b[kPieces];
+#pragma unroll
+          for (int k = 0; k < kPieces; ++k) {
+            ldsm_x4(arow + 2 * k * kPos0 * kF0, af[k]);
+            b[k] = w0x[(k * 8 + cls * 2 + s) * 32 + lane];
+          }
+          mma_pairs(acc, af, b);
         }
       }
       if (2 * q < C) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int ry = 2 * a + cy, rx = 2 * (g + 8 * h) + cx;
-          *reinterpret_cast<unsigned*>(dxs + (ry * kTX + rx) * C + 2 * q) =
-              pack(acc[2 * h], acc[2 * h + 1]);
+          store_pair(dxs + (ry * kTX + rx) * C + 2 * q, acc[2 * h], acc[2 * h + 1]);
         }
       }
     }
     __syncthreads();
 
     // the tile's dx, 16 bytes a store
-    constexpr int kPix = 8 / C;            // pixels per 16 bytes
-    for (int i = tid; i < kTX * kTX / kPix; i += blockDim.x) {
-      const int ry = i / (kTX / kPix), rx = i % (kTX / kPix) * kPix;
+    constexpr int kVec = 16 / sizeof(T);   // elements per 16 bytes: a pixel or two
+    for (int i = tid; i < kTX * kTX * C / kVec; i += blockDim.x) {
+      const int e = kVec * i, ry = e / C / kTX, rx = e / C % kTX;
       const int iy = kTX * t.ty + ry, ix = kTX * t.tx + rx;
       if (iy < P && ix < P)
-        *reinterpret_cast<uint4*>(dx + (((size_t)t.n * P + iy) * P + ix) * C) =
-            *reinterpret_cast<const uint4*>(dxs + (ry * kTX + rx) * C);
+        *reinterpret_cast<uint4*>(dx + (((size_t)t.n * P + iy) * P + ix) * C + e % C) =
+            *reinterpret_cast<const uint4*>(dxs + e);
     }
   }
   cp_async_wait_all();
@@ -1491,100 +1419,24 @@ head_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 
 }  // namespace tc
 
-// Second pass of the input backward: one block per 32 x 32 input tile (tile (ty, tx)
-// covers the inputs of stage-1 tile (ty, tx)).  Halo coordinates: stage-0 position
-// py <-> row 16 ty - 1 + py, dpre1 position qy <-> row 8 ty - 1 + qy.
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-head_dx_kernel(const T* __restrict__ x, const T* __restrict__ w0, const T* __restrict__ b0,
-               const T* __restrict__ w1, const T* __restrict__ b1,
-               const float* __restrict__ dpre1, int P, int tps, T* __restrict__ dx) {
-  using L = Layout<C>;
-  extern __shared__ float4 smem4[];
-  float* xw = reinterpret_cast<float*>(smem4);
-  float* w0s = xw + L::xw;
-  float* b0s = w0s + L::w0;
-  float* w1s = b0s + kF0;
-  float* b1s = w1s + L::w1;
-  float* e0 = b1s + kF1;                  // elu(a0): computed, not used
-  float* d0 = e0 + L::s0;                 // elu'(a0), then dpre0 in place
-  float* dp1 = d0 + L::s0;                // [10, 10, F1] dpre1, 0 outside the image
-  const int H1 = P / 4;
-  const int tid = threadIdx.x;
-  const Tile t = decode_tile(blockIdx.x, tps);
-
-  load_weights<C>(w0, b0, w1, b1, w0s, b0s, w1s, b1s);
-  load_window<C>(x, P, t, xw);
-  for (int i = tid; i < L::dp; i += blockDim.x) {
-    const int f1 = i % kF1, q = i / kF1;
-    const int oy = kT1 * t.ty - 1 + q / kTD, ox = kT1 * t.tx - 1 + q % kTD;
-    dp1[i] = (oy >= 0 && oy < H1 && ox >= 0 && ox < H1)
-                 ? dpre1[(((size_t)t.n * H1 + oy) * H1 + ox) * kF1 + f1]
-                 : 0.0f;
-  }
-  __syncthreads();
-  stage0<C, T>(xw, w0s, b0s, P / 2, t, e0, d0);
-  __syncthreads();
-
-  // dpre0[py, px, f0] = elu'(a0) * sum over the taps that reach it (ky = py mod 2)
-  for (int i = tid; i < L::s0; i += blockDim.x) {
-    const int f0 = i % kF0, pos = i / kF0;
-    const int py = pos / kT0, px = pos % kT0;
-    float s = 0.0f;
-    for (int ky = py & 1; ky < 4; ky += 2) {
-      const int qy = (py + 2 - ky) / 2;
-      for (int kx = px & 1; kx < 4; kx += 2) {
-        const int qx = (px + 2 - kx) / 2;
-        const float* dp = dp1 + (qy * kTD + qx) * kF1;
-        const float* wp = w1s + ((ky * 4 + kx) * kF0 + f0) * kF1;
-#pragma unroll
-        for (int f1 = 0; f1 < kF1; ++f1) s += dp[f1] * wp[f1];
-      }
-    }
-    d0[i] = s * d0[i];
-  }
-  __syncthreads();
-
-  // dx[ry, rx, c] = sum over the taps that reach it (ky = ry + 1 mod 2) and f0
-  for (int i = tid; i < kTX * kTX; i += blockDim.x) {
-    const int ry = i / kTX, rx = i % kTX;
-    const int iy = kTX * t.ty + ry, ix = kTX * t.tx + rx;
-    if (iy >= P || ix >= P) continue;
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-    for (int ky = (ry + 1) & 1; ky < 4; ky += 2) {
-      const int py = (ry + 3 - ky) / 2;
-      for (int kx = (rx + 1) & 1; kx < 4; kx += 2) {
-        const int px = (rx + 3 - kx) / 2;
-        const float* dp = d0 + (py * kT0 + px) * kF0;
-        const float* wp = w0s + (ky * 4 + kx) * C * kF0;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-#pragma unroll
-          for (int f0 = 0; f0 < kF0; ++f0) acc[c] += dp[f0] * wp[c * kF0 + f0];
-        }
-      }
-    }
-    lshm::store_vec<C>(dx + (((size_t)t.n * P + iy) * P + ix) * C, acc);
-  }
-}
-
 int tiles_per_side(int P) { return (P / 4 + kT1 - 1) / kT1; }
 
-// K3 in both dtypes on the tensor cores: a fixed grid of per_sm blocks on each SM
-// walking the tiles
+// the fixed grids: per_sm blocks on each SM walking the tiles, or one block a tile
+int grid(int ntiles, int per_sm) {
+  return ntiles < per_sm * tc::kSMs ? ntiles : per_sm * tc::kSMs;
+}
+
+// K3 in both dtypes on the tensor cores
 template <typename T, int C>
 int fwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, int B, int P,
         T* out, cudaStream_t stream) {
   using S = tc::FwdSmem<C, T>;
   const int tps = tiles_per_side(P);
   const int ntiles = B * tps * tps;
-  const int nblk = ntiles < S::per_sm * tc::kSMs ? ntiles : S::per_sm * tc::kSMs;
   cudaError_t err = lshm::allow_smem(tc::head_fwd_tc_kernel<C, T>, S::bytes);
   if (err != cudaSuccess) return (int)err;
-  tc::head_fwd_tc_kernel<C, T><<<nblk, kThreads, S::bytes, stream>>>(x, w0, b0, w1, b1, P,
-                                                                     tps, ntiles, out);
+  tc::head_fwd_tc_kernel<C, T><<<grid(ntiles, S::per_sm), kThreads, S::bytes, stream>>>(
+      x, w0, b0, w1, b1, P, tps, ntiles, out);
   return (int)cudaGetLastError();
 }
 
@@ -1615,44 +1467,24 @@ int bwd(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T*
   return (int)cudaGetLastError();
 }
 
+// K5 in both dtypes on the tensor cores, in two passes
 template <typename T, int C>
 int dx_pass(const T* x, const T* w0, const T* b0, const T* w1, const T* b1, const T* g1,
             int B, int P, float* dpre1, T* dx, cudaStream_t stream) {
-  using L = Layout<C>;
-  const int tps = tiles_per_side(P);
-  cudaError_t err = lshm::allow_smem(head_dpre1_kernel<C>, L::fwd_bytes);
-  if (err != cudaSuccess) return (int)err;
-  head_dpre1_kernel<C><<<B * tps * tps, kThreads, L::fwd_bytes, stream>>>(
-      x, w0, b0, w1, b1, g1, P, tps, dpre1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = lshm::allow_smem(head_dx_kernel<T, C>, L::dx_bytes);
-  if (err != cudaSuccess) return (int)err;
-  head_dx_kernel<T, C><<<B * tps * tps, kThreads, L::dx_bytes, stream>>>(
-      x, w0, b0, w1, b1, dpre1, P, tps, dx);
-  return (int)cudaGetLastError();
-}
-
-// bfloat16: both passes on the tensor cores, each a fixed grid walking the tiles
-template <int C>
-int dx_pass_tc(const __nv_bfloat16* x, const __nv_bfloat16* w0, const __nv_bfloat16* b0,
-               const __nv_bfloat16* w1, const __nv_bfloat16* b1, const __nv_bfloat16* g1,
-               int B, int P, float* dpre1, __nv_bfloat16* dx, cudaStream_t stream) {
+  using S1 = tc::FwdSmem<C, T>;
+  using S2 = tc::DxSmem<C, T>;
   const int tps = tiles_per_side(P);
   const int ntiles = B * tps * tps;
-  const int n1 = tc::kDpre1PerSM * tc::kSMs, n2 = tc::kDxPerSM * tc::kSMs;
-  const int nblk1 = ntiles < n1 ? ntiles : n1, nblk2 = ntiles < n2 ? ntiles : n2;
-  constexpr int bytes1 = tc::Smem<C>::bytes, bytes2 = tc::DxSmem<C>::bytes;
-  cudaError_t err = lshm::allow_smem(tc::dpre1_tc_kernel<C>, bytes1);
+  cudaError_t err = lshm::allow_smem(tc::dpre1_tc_kernel<C, T>, S1::bytes);
   if (err != cudaSuccess) return (int)err;
-  tc::dpre1_tc_kernel<C><<<nblk1, kThreads, bytes1, stream>>>(x, w0, b0, w1, b1, g1, P, tps,
-                                                              ntiles, dpre1);
+  tc::dpre1_tc_kernel<C, T><<<grid(ntiles, S1::per_sm), kThreads, S1::bytes, stream>>>(
+      x, w0, b0, w1, b1, g1, P, tps, ntiles, dpre1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = lshm::allow_smem(tc::head_dx_tc_kernel<C>, bytes2);
+  err = lshm::allow_smem(tc::head_dx_tc_kernel<C, T>, S2::bytes);
   if (err != cudaSuccess) return (int)err;
-  tc::head_dx_tc_kernel<C><<<nblk2, kThreads, bytes2, stream>>>(x, w0, b0, w1, b1, dpre1, P,
-                                                                tps, ntiles, dx);
+  tc::head_dx_tc_kernel<C, T><<<grid(ntiles, S2::per_sm), kThreads, S2::bytes, stream>>>(
+      x, w0, b0, w1, b1, dpre1, P, tps, ntiles, dx);
   return (int)cudaGetLastError();
 }
 
@@ -1683,17 +1515,10 @@ int dx_c(const void* x, const void* w0, const void* b0, const void* w1, const vo
          const void* g1, int B, int P, int C, float* dpre1, void* dx, cudaStream_t stream) {
   auto p = [](const void* v) { return static_cast<const T*>(v); };
   T* d = static_cast<T*>(dx);
-  if constexpr (std::is_same<T, float>::value) {
-    if (C == 4)
-      return dx_pass<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
-    if (C == 8)
-      return dx_pass<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
-  } else {
-    if (C == 4)
-      return dx_pass_tc<4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
-    if (C == 8)
-      return dx_pass_tc<8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
-  }
+  if (C == 4)
+    return dx_pass<T, 4>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
+  if (C == 8)
+    return dx_pass<T, 8>(p(x), p(w0), p(b0), p(w1), p(b1), p(g1), B, P, dpre1, d, stream);
   return (int)cudaErrorInvalidValue;
 }
 

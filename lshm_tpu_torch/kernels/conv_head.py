@@ -22,17 +22,18 @@ weight gradients, which ``EncHead``'s backward casts to the weights' dtype
 (``conv2d_outer.py::_vjp_bwd``); K5 keeps its intermediate dpre1 = g1 * elu'(a1) in
 float32 and rounds dx once to x's dtype.
 
-float32 K5 sums on the CUDA cores.  K3 in either dtype (``tc::head_fwd_tc_kernel``), K4
-in either dtype (``tc::head_bwd_tc_kernel``, ``tc::head_bwd_f32_tc_kernel``) and bf16 K5
-(``tc::dpre1_tc_kernel`` then ``tc::head_dx_tc_kernel``) run each per-tile sum as a
-tensor-core product (``mma.sync``, bf16 operands, float32 sums); K3 is K4's stage 0 and
-stage 1 with the output's epilogue.  In bf16, x, the weights and e0 are exact bf16
-operands, and the two float32 cotangents (dpre1, dpre0) go in as three bf16 pieces
-each whose sum is the float32 value exactly, so their sums keep float32 accuracy.
-float32 K3 and K4 split every operand so (x, w0, w1 and the unrounded e0 too) and run
-the six piece pairs of order 2^-16 and above, which come as close to the head in
-float64 as all nine (``tests/test_torch_head_bwd_f32_tc.py``,
-``tests/test_torch_head_fwd_tc.py``).  The windows stay in shared memory (bf16, or
+K3 (``tc::head_fwd_tc_kernel``), K4 (``tc::head_bwd_tc_kernel``,
+``tc::head_bwd_f32_tc_kernel``) and K5 (``tc::dpre1_tc_kernel`` then
+``tc::head_dx_tc_kernel``), each in either dtype, run each per-tile sum as a tensor-core
+product (``mma.sync``, bf16 operands, float32 sums); K3 is K4's stage 0 and stage 1 with
+the output's epilogue, and K5's first pass the same kernel with the epilogue
+g1 * elu'(a1).  In bf16, x, the weights and e0 are exact bf16 operands, and the two
+float32 cotangents (dpre1, dpre0) go in as three bf16 pieces each whose sum is the
+float32 value exactly, so their sums keep float32 accuracy.  In float32 the kernels split
+every operand so (x, w0, w1 and the unrounded e0 too) and run the six piece pairs of
+order 2^-16 and above, which come as close to the head in float64 as all nine
+(``tests/test_torch_head_bwd_f32_tc.py``, ``tests/test_torch_head_fwd_tc.py``,
+``tests/test_torch_head_dx_f32_tc.py``).  The windows stay in shared memory (bf16, or
 float32's pieces) and the next tile's loads asynchronously.  The bf16 kernels sum a0
 in another order than the plain version, so an e0 near a bf16 tie may round the other
 way: K3 bf16's output differs from the plain version's in 1e-4 to 2e-4 of its elements,
@@ -46,7 +47,10 @@ the FP32 units), over 130.7 MB (39 us at 3.35 TB/s), bound by bytes; weight
 backward 7.5 GFLOP, each product float32-accurate as six bf16 piece pairs on the
 tensor cores (44.9 GFLOP: 45 us at 989 TFLOP/s; 112 us on the FP32 units), bound
 by operations (the kernel's products, with the padding, are 68.7 GFLOP: 69 us);
-input backward 6.17 GFLOP (92 us) over 240.8 MB (72 us), bound by operations.  bfloat16:
+input backward 6.17 GFLOP, float32-accurate as six bf16 piece pairs on the tensor cores
+(37 GFLOP: 37 us; 92 us on the FP32 units), over 240.8 MB (72 us), bound by bytes (its
+two passes move 392.2 MB, 117 us: x twice, g1, the float32 dpre1 written and read, dx;
+their products, with the pairs and the padding, are 79.3 GFLOP, 80 us).  bfloat16:
 forward and weight backward each move 65.4 MB (19.5 us), and their operations take 3.1
 and 7.6 us on the bf16 tensor cores (989 TFLOP/s), so both are bound by bytes; the
 input backward must move 120.4 MB (35.9 us) against 6.2 us of operations, bound by
@@ -213,11 +217,11 @@ def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
     _check("g1", g1, (B, P // 4, P // 4, F1), x.device, x.dtype)
     if x.device.type == "cpu":
         return head_grads_plain(x, w0, b0, w1, b1, g1, input_grad=True)[0].to(x.dtype)
+    if g1.data_ptr() % (2 * g1.element_size()):
+        raise ValueError("g1: the input-gradient kernel loads channel pairs from an "
+                         "address aligned to a pair")
     lib = _lib()
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and g1.data_ptr() % 4:
-        raise ValueError("g1: the bf16 input-gradient kernel loads channel pairs from a "
-                         "4-byte aligned address")
     dx = torch.empty_like(x)
     # first pass: g1 * elu'(a1), float32 in either dtype (the TPU kernel's z1 scratch)
     dpre1 = torch.empty(g1.shape, dtype=torch.float32, device=x.device)

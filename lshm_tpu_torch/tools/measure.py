@@ -3,8 +3,11 @@
 
 from __future__ import annotations
 
+import importlib
 import math
 import statistics
+import subprocess
+import sys
 import time
 
 import torch
@@ -102,3 +105,21 @@ def bf16_ulp(v: float) -> float:
     """The spacing of bfloat16 values at magnitude ``v`` (8 significant bits): the
     tolerance "one bf16 ulp of the largest value"."""
     return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def kernels_module(name: str, tree: str | None = None):
+    """``lshm_tpu_torch.kernels.<name>`` of this checkout, or of the checkout at
+    ``tree`` (for example the parent commit unpacked with ``git archive``), whose
+    package then replaces this one in ``sys.modules``: two trees timed alike."""
+    if tree:
+        for mod in [m for m in sys.modules if m.split(".")[0] == "lshm_tpu_torch"]:
+            del sys.modules[mod]
+        sys.path.insert(0, tree)
+    return importlib.import_module(f"lshm_tpu_torch.kernels.{name}")

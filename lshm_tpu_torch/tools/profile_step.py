@@ -28,7 +28,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -111,12 +110,11 @@ def main() -> int:
     from lshm_tpu_torch.data import MinibatchSampler, synth_extract
     from lshm_tpu_torch.device import use_exact_float32
     from lshm_tpu_torch.train import LossWeights, init_train_state, make_train_step
+    from lshm_tpu_torch.tools.measure import card
 
     use_exact_float32()
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card()
     cfg_k = _config(True, ADMM_ITERS, args.compute_dtype)
     tree = synth_extract(nstations=5, ntime=384, nfreq=512, seed=0)
     mb = MinibatchSampler([tree], ["0"], cfg_k.data, seed=0).sample()
