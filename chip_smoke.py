@@ -49,7 +49,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
   9. conv0_probe      the port's probe tool at batch 420, at its default dtype (bf16)
                 and in float32 (its parity check, then K6, its plain version and cuDNN
                 timed), then K6's parity at 420 in each dtype (float32 1e-5, bf16 one
-                ulp): K6's two rows of the kernels line
+                ulp) and its gates at 420, at C = 8 and at P = 36 (float32 1e-5 and
+                within twice the plain version's distance from float64; bf16 one ulp,
+                at most 1e-4 of the outputs differing and the same float64 rule;
+                bit-identical repeats), a SHA-256 digest of its outputs in each dtype
+                and the profiler's device time per launch: K6's two rows of the
+                kernels line
   10. lbfgs     the full-width Trainer through the published recipe's Adam -> L-BFGS
                 switch (preset full_khm_lbfgs as published, bfloat16, its prefetch on):
                 4 epochs x 1 minibatch x 2 ADMM iterations over the groups ae2d, ae1d,
@@ -797,12 +802,68 @@ def head_input_grad_phase(dev) -> dict:
     return counts
 
 
+# K6's gates: tests/test_torch_conv0_tc.py measured 0 to 6.1e-5 of bf16 outputs one ulp
+# off the plain version (131,072 outputs, eight seeds, each C) and set the share gate
+K6_SHARE_GATE = 1e-4
+K6_CASES = ((PATCHES, 128, 4), (16, 128, 8), (64, 36, 8), (64, 36, 4))   # B, P, C
+
+
+def conv0_agreement(dev, dtype: torch.dtype) -> dict:
+    """K6 of ``dtype`` against its plain version at the probe's shapes (B = 420, P =
+    128, C = 4; seed 2, the probe's parity inputs) and at C = 8, at P = 36 (a ragged
+    edge of the 8- and 4-row tiles) and both: the relative error, the largest
+    difference in bf16 ulps of the plain version's largest value, the share of outputs
+    that differ, each form's relative distance from the convolution in float64 (on
+    the first 8 samples), and whether two calls agree bit for bit; with a SHA-256
+    digest of the outputs at B = 420."""
+    import torch.nn.functional as F
+
+    from lshm_tpu_torch.kernels import conv0 as k6
+    from lshm_tpu_torch.tools.measure import bf16_ulp
+
+    out = {}
+    for B, P, C in K6_CASES:
+        g = torch.Generator().manual_seed(2)
+        x, w, b = (t.to(dev, dtype) for t in (
+            torch.randn(B, P, P, C, generator=g), torch.randn(8, C, 4, 4, generator=g) * 0.1,
+            torch.randn(8, generator=g) * 0.1))
+        y, y2, y_p = k6.conv0_elu(x, w, b), k6.conv0_elu(x, w, b), k6.conv0_elu_plain(x, w, b)
+        y64 = F.elu(F.conv2d(x[:8].double().permute(0, 3, 1, 2), w.double(), b.double(),
+                             stride=2, padding=1)).permute(0, 2, 3, 1)
+        err, top = abs_err(y.float(), y_p.float()), float(y_p.float().abs().max())
+        out[f"B{B}_P{P}_C{C}"] = {
+            "rel_err": err / top, "ulps_of_max": err / bf16_ulp(top),
+            "differing_share": float((y != y_p).float().mean()),
+            "vs_f64": vs_f64({"kernel": [y[:8]], "plain": [y_p[:8]]}, [y64]),
+            "bit_identical": bool(torch.equal(y, y2)),
+            **({"digest": digest([y])} if B == PATCHES else {})}
+    return out
+
+
+def conv0_ok(cases: dict, dtype: torch.dtype) -> bool:
+    """K6's gates in every case: float32 within 1e-5 of the plain version and no
+    farther from float64 than twice the plain version (three piece pairs instead of six
+    read 5e-6 from it on the CPU, twice the plain version 7e-7); bf16 within one ulp of
+    the largest value, at most K6_SHARE_GATE of the outputs differing, no farther from
+    float64 than twice the plain version; both bit-identical over two calls."""
+    for c in cases.values():
+        near = c["vs_f64"]["kernel"] <= 2 * c["vs_f64"]["plain"]
+        close = (c["rel_err"] <= 1e-5 if dtype == torch.float32 else
+                 c["ulps_of_max"] <= 1 and c["differing_share"] <= K6_SHARE_GATE)
+        if not (near and close and c["bit_identical"]):
+            return False
+    return True
+
+
 def conv0_probe_phase(dev) -> tuple[dict, list[dict]]:
     """The port's probe tool at batch 420 at its default dtype (bfloat16), then in
     float32 (each: its own parity check, then the timings of kernel, plain version and
-    cuDNN); then K6 of each dtype against its plain version at 420."""
+    cuDNN); then K6 of each dtype against its plain version (conv0_agreement) and the
+    profiler's device time per launch at 420."""
+    from lshm_tpu_torch.kernels import conv0 as k6
     from lshm_tpu_torch.kernels import launch_counts, reset_launches
     from lshm_tpu_torch.tools import conv0_probe
+    from lshm_tpu_torch.tools.measure import profiler_us
 
     reset_launches()
     results = {"bfloat16": conv0_probe.main(["--batch", str(PATCHES)]),
@@ -811,19 +872,27 @@ def conv0_probe_phase(dev) -> tuple[dict, list[dict]]:
     rows = []
     for dtype, counter in (("bfloat16", "conv0_bf16"), ("float32", "conv0")):
         result = results[dtype]
+        tdtype = conv0_probe.DTYPES[dtype]
         full = conv0_probe.parity(dev, batch=PATCHES, seed=2, dtype=dtype)
+        cases = conv0_agreement(dev, tdtype)
+        x, w, b = conv0_probe.inputs(dev, PATCHES, 0, dtype)     # the timing's inputs
+        prof = profiler_us(lambda: k6.conv0_elu(x, w, b))
         emit({"phase": "conv0_probe", "launches": counts[counter], **result,
-              "parity_at_batch": full})
+              "parity_at_batch": full, "agreement": cases, "profiler_us": prof})
         if counts[counter] == 0:
             raise AssertionError(f"the probe did not launch K6 in {dtype}")
-        if full["parity_max_abs_err"] > full["parity_tol_abs"]:
-            raise AssertionError(f"conv0 kernel disagrees with its plain version: {full}")
+        if full["parity_max_abs_err"] > full["parity_tol_abs"] or not conv0_ok(cases, tdtype):
+            raise AssertionError(f"conv0 kernel disagrees with its plain version: {full} "
+                                 f"{cases}")
         rows.append(dict(
             name="K6 conv0" + (" (bf16)" if dtype == "bfloat16" else ""), route="cuda",
             source="lshm_tpu_torch/csrc/conv0.cu",
             replaces="benchmarks/pallas_conv_probe.py:56", counter=counter,
-            path="conv0_probe", max_abs_err=full["parity_max_abs_err"],
-            ms=result["kernel_ms"], plain_ms=result["plain_ms"],
+            path="conv0_probe",
+            arch="mma.sync m16n8k16 bf16" + (", operands in 3 pieces, 6 pairs"
+                                             if dtype == "float32" else ""),
+            max_abs_err=full["parity_max_abs_err"], ms=result["kernel_ms"],
+            profiler_us=prof, plain_ms=result["plain_ms"],
             bound_ms=result["bound_ms"], bound_by=result["bound_by"],
             library_ms=result["cudnn_ms"]))
     return counts, rows

@@ -31,7 +31,7 @@ C, F0, P = 4, 8, 128
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _inputs(device, batch: int, seed: int, dtype: str):
+def inputs(device, batch: int, seed: int, dtype: str):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(batch, P, P, C, generator=g)
     w = torch.randn(F0, C, 4, 4, generator=g) * 0.1
@@ -41,7 +41,7 @@ def _inputs(device, batch: int, seed: int, dtype: str):
 
 def parity(device, batch: int = 8, seed: int = 3, dtype: str = "bfloat16") -> dict:
     """Kernel against its plain version, with the tolerance of ``dtype``."""
-    x, w, b = _inputs(device, batch, seed, dtype)
+    x, w, b = inputs(device, batch, seed, dtype)
     got, want = k6.conv0_elu(x, w, b).float(), k6.conv0_elu_plain(x, w, b).float()
     err, top = float((got - want).abs().max()), float(want.abs().max())
     tol = measure.bf16_ulp(top) if dtype == "bfloat16" else 1e-5 * top
@@ -63,7 +63,7 @@ def bound(batch: int, dtype: str = "bfloat16") -> tuple[float, str]:
 
 def timing(device, batch: int = 420, seed: int = 0, dtype: str = "bfloat16") -> dict:
     """CUDA-event medians (ms) of kernel, plain version and cuDNN at ``batch``."""
-    x, w, b = _inputs(device, batch, seed, dtype)
+    x, w, b = inputs(device, batch, seed, dtype)
     x_lib = x.permute(0, 3, 1, 2)                  # channels-last view of NHWC
     if dtype == "float32":
         x_lib = x_lib.contiguous()                 # cuDNN's float32 NCHW

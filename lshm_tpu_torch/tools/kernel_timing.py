@@ -1,7 +1,7 @@
 """Port kernels timed alone at the main path's shapes, in this checkout or in another
 one.
 
-    python -m lshm_tpu_torch.tools.kernel_timing {khm,head_dx} [--tree DIR]
+    python -m lshm_tpu_torch.tools.kernel_timing {khm,head_dx,conv0} [--tree DIR]
 
 ``khm``: K1 and K2 for X [420, 256] and [420, 288] (the full_khm and fourier_cascade
 latents) and a larger batch, X [2500, 256], with M [10, D] and p = 4, each with
@@ -9,7 +9,9 @@ latents) and a larger batch, X [2500, 256], with M [10, D] and p = 4, each with
 around 200 calls) besides the fields below, beside ``launch_floor_us``, a one-element
 fill timed as ``device_us``.  ``head_dx``: K5, the fused head's input gradient, for
 x [420, 128, 128, 4], the weights and g1 [420, 32, 32, 12] of ``chip_smoke.py``'s
-parity phase (seed 1), in float32 and in bf16 (the same values rounded).  Every entry
+parity phase (seed 1), in float32 and in bf16 (the same values rounded).  ``conv0``:
+K6, the standalone first stage, for x [420, 128, 128, C] at C = 4 (the probe's shape)
+and C = 8, in float32 and bf16 (seed 0), each also with ``device_us``.  Every entry
 has ``ms`` (median of 20 single calls between CUDA events) and the profiler's device
 us per launch by kernel name.  ``--tree`` times the kernels of another checkout (for
 example the parent commit unpacked with ``git archive``) with this checkout's timing
@@ -59,8 +61,23 @@ def head_dx(H, dev) -> dict:
     return out
 
 
+def conv0(K6, dev) -> dict:
+    B, P = 420, 128
+    out = {}
+    for C in (4, 8):
+        g = torch.Generator().manual_seed(0)
+        x = [torch.randn(B, P, P, C, generator=g), torch.randn(8, C, 4, 4, generator=g) * 0.1,
+             torch.randn(8, generator=g) * 0.1]
+        for dtype in (torch.float32, torch.bfloat16):
+            a = [t.to(dev, dtype) for t in x]
+            fn = lambda: K6.conv0_elu(*a)           # noqa: E731
+            out[f"K6 C={C} {dtype}"] = dict(ms=time_ms(fn), device_us=queued_us(fn),
+                                            profiler_us=profiler_us(fn))
+    return out
+
+
 # what to time: the kernels module it comes from and the function that times it
-TIMED = {"khm": ("khm", khm), "head_dx": ("conv_head", head_dx)}
+TIMED = {"khm": ("khm", khm), "head_dx": ("conv_head", head_dx), "conv0": ("conv0", conv0)}
 
 
 def main(argv=None) -> int:

@@ -10,7 +10,10 @@ the source, the kernel's demangled name without its parameters, registers, barri
 stack frame, spill stores and spill loads (bytes).  With ``--sass`` each line also
 holds ``sass_sha256``, a digest of the kernel's machine code as ``cuobjdump -sass``
 lists it: two trees whose kernel has the same digest run the same instructions.
-Needs ``nvcc``; no card.
+nvcc runs inside ``csrc/`` on the bare file name: the mangled name of a kernel in an
+anonymous namespace holds a hash of the source's path as given, and ptxas's register
+allocation can follow that name, so two checkouts compiled by absolute path can differ
+in machine code that their sources do not.  Needs ``nvcc``; no card.
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ def main(argv: list[str] | None = None) -> int:
     digests: dict[str, dict[str, str]] = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {n: subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                                      f"{tmp}/lib{n}.so", str(CSRC / f"{n}.cu")],
+                                      f"{tmp}/lib{n}.so", f"{n}.cu"], cwd=CSRC,
                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                      text=True)
                  for n in names}
