@@ -65,8 +65,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 kernels (K1-K4 launched) against the plain path (none launched), within
                 1e-4 / 2e-4, and one L-BFGS ADMM iteration through each with both
                 func_evals printed
-Each path (4, 6, 7, 8, 9, 10) is driven with the launch counts set to 0 just before it
-and read just after.  Then the kernels table as one JSON line, the card's name and power
+  12. resume    float32 full_khm with Adam, 2 epochs x 2 minibatches x 10 ADMM
+                iterations: the uninterrupted run twice (the card's run-to-run
+                distance), then the same training cut at the epoch boundary and
+                mid-epoch (save_every_iters=1) and resumed by a fresh Trainer.load:
+                each resumed run bit-identical to the first run where the two
+                uninterrupted runs are, else within twice their distance; K1-K4
+                launch as often cut and resumed as uninterrupted
+  13. eval      the clustering evaluation of a SAP from the resumed run's checkpoint
+                (synthetic extract of 10 stations: 55 baselines x 35 patches, chunks of
+                8): baseline_distance_matrix in float32 and bfloat16_full, through the
+                kernels (K3 once a chunk) and with pallas_head=False (never), latents
+                1e-5 and X 1e-4 from the plain path in float32 with the same soft
+                assignment (bf16: the distances and the share of equal assignments
+                printed); wall seconds, patches/s, baselines/s, peak memory; the serial
+                path (decode_lookahead=0) against the pipelined one (seconds; the same
+                1e-5 / 1e-4, bit-identity printed), the host decode alone and one
+                chunk's forward; then evaluate_sap without t-SNE
+  14. export    export_forward of that float32 model with a symbolic batch on the card
+                and load_exported of it, called at batch 35 and 96: the graph holds the
+                lshm_tpu_torch.head_fwd node, each call launches K3 once, outputs within
+                1e-6 of the eager kernel path (bit-identity printed), ms at batch 96
+Each path (4, 6, 7, 8, 9, 10, 12, 13 and the exported calls of 14) is driven with the
+launch counts set to 0 just before it and read just after.  Then the kernels table as one JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}} as the last line.  Without a CUDA device it
 exits 2 before printing any result.  It imports nothing of JAX or of the JAX package.
 """
@@ -1114,6 +1135,291 @@ def agree_lbfgs_phase(dev, tree) -> None:
         raise AssertionError("the L-BFGS closure disagrees between kernels and plain path")
 
 
+# ------------------------------------------------------------------ phases 12 to 14
+
+def _state_distance(a: dict, b: dict) -> float:
+    """Largest relative max-abs distance over the tensors of two state dicts."""
+    return max(rel_err(a[k].float(), b[k].float()) for k in b)
+
+
+def _counting_saves(trainer, at_step: int) -> dict:
+    """The launch counts at the moment ``trainer`` saves step ``at_step`` (filled in
+    then): the launches of the part of the run before that checkpoint."""
+    from lshm_tpu_torch.kernels import launch_counts
+
+    seen, save = {}, trainer.save
+
+    def counted(ckpt_dir, step, **kw):
+        if step == at_step:
+            seen.update(launch_counts())
+        return save(ckpt_dir, step, **kw)
+
+    trainer.save = counted
+    return seen
+
+
+def resume_phase(tree, tmpdir: str) -> str:
+    """float32 full_khm with Adam at full width, 2 epochs x 2 minibatches x 10 ADMM
+    iterations: the uninterrupted run twice (the card's own run-to-run distance), then
+    the same training cut at the epoch boundary and mid-epoch (save_every_iters=1) and
+    resumed by a fresh Trainer through load.  Each resumed run lies no farther from the
+    first uninterrupted run than twice that distance (bit for bit where the two
+    uninterrupted runs agree bit for bit), and K1-K4 launch as often in the cut and
+    resumed runs together as in the uninterrupted run.  Returns the checkpoint the
+    epoch-boundary resume wrote at its end."""
+    import dataclasses
+
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import Trainer
+    from lshm_tpu_torch.utils import MetricLogger
+
+    base = flagship_config("")
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, num_epochs=2, iters_per_epoch=2, checkpoint_dir=""))
+
+    def with_train(**kw):
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **kw))
+
+    def run(c, trainer=None, ckpt: str | None = None, step: int | None = None):
+        t = trainer or Trainer(c, logger=MetricLogger(echo=False))   # the card
+        if ckpt is not None:
+            t.load(ckpt, step)
+        t.run(MinibatchSampler([tree], ["0"], c.data, seed=c.train.seed))
+        torch.cuda.synchronize()
+        return t
+
+    def params(t):
+        return {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    full = params(run(cfg))
+    uninterrupted_s = time.perf_counter() - t0
+    full_counts = {k: launch_counts()[k] for k in ADAM_PATH}
+    full2 = params(run(cfg))
+    run_to_run = _state_distance(full2, full)
+
+    cuts = {}
+    ck_epoch, ck_mid, ck_final = (os.path.join(tmpdir, n) for n in ("epoch", "mid", "final"))
+    # the epoch boundary: the first epoch's run saves step 2 at its end
+    for name, cut_cfg, ckpt, step, resume_cfg in (
+            ("epoch_boundary", with_train(num_epochs=1, checkpoint_dir=ck_epoch), ck_epoch,
+             2, with_train(checkpoint_dir=ck_final)),
+            ("mid_epoch", with_train(num_epochs=1, checkpoint_dir=ck_mid,
+                                     save_every_iters=1), ck_mid, 1, cfg)):
+        reset_launches()
+        cut = Trainer(cut_cfg, logger=MetricLogger(echo=False))
+        before_cut = _counting_saves(cut, step)
+        run(cut_cfg, cut)
+        reset_launches()
+        resumed = run(resume_cfg, Trainer(resume_cfg, logger=MetricLogger(echo=False)),
+                      ckpt, step)
+        counts = {k: before_cut[k] + launch_counts()[k] for k in ADAM_PATH}
+        dist = _state_distance(params(resumed), full)
+        cuts[name] = {"checkpoint_step": step, "resumed_steps": resumed.state.step,
+                      "distance": dist, "bit_identical": dist == 0.0, "launches": counts}
+    row = {"phase": "resume", "preset": "full_khm", "compute_dtype": "float32",
+           "epochs": 2, "minibatches_per_epoch": 2, "admm_iters": cfg.train.admm_iters,
+           "uninterrupted_s": uninterrupted_s, "launches": full_counts,
+           "run_to_run_distance": run_to_run, "run_to_run_bit_identical": run_to_run == 0.0,
+           **cuts}
+    emit(row)
+    for name, c in cuts.items():
+        if c["resumed_steps"] != 4 or c["launches"] != full_counts:
+            raise AssertionError(f"{name} resume did not retrace the run: {c}, "
+                                 f"uninterrupted launches {full_counts}")
+        if (c["distance"] != 0.0 if run_to_run == 0.0
+                else c["distance"] > 2 * run_to_run):
+            raise AssertionError(f"{name} resume lies {c['distance']} from the "
+                                 f"uninterrupted run (run to run: {run_to_run})")
+    return ck_final
+
+
+EVAL_STATIONS = 10             # 55 baselines of 384 x 512 channels (35 patches each)
+
+
+def eval_phase(tree, ckpt: str):
+    """The clustering evaluation of a SAP at full width from a checkpoint: a fresh
+    Trainer loads it in float32 and in bfloat16_full, through the kernels and with
+    pallas_head=False (the same weights), and runs baseline_distance_matrix over every
+    baseline, chunks of 8 (K3 once a chunk; never on the plain path); then the serial
+    path (decode_lookahead=0) against the pipelined one and evaluate_sap without t-SNE.
+    float32: latents within 1e-5 and X within 1e-4 of the plain path, the same soft
+    assignment.  Returns the float32 kernel-path model."""
+    import dataclasses
+    import math
+
+    import numpy as np
+
+    from lshm_tpu_torch.data import (patch_grid_shape, read_baselines_patches_batch,
+                                     read_metadata)
+    from lshm_tpu_torch.eval import baseline_distance_matrix, evaluate_sap
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import Trainer
+
+    nbase, ntime, nfreq, _, _ = read_metadata(tree, "0")
+    px, py = patch_grid_shape(ntime, nfreq, 128)
+    patches = nbase * px * py
+    bpb = 8
+    nchunks = math.ceil(nbase / bpb)
+
+    def loaded(dtype, kernels):
+        cfg = flagship_config("", "full_khm", dtype)
+        if not kernels:
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, khm_backend="xla", pallas_head=False))
+        t = Trainer(cfg)
+        t.load(ckpt)
+        return t.model.eval()
+
+    def timed_matrix(model, **kw):
+        baseline_distance_matrix(model, tree, "0", baseline_ids=range(bpb))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        X, lat = baseline_distance_matrix(model, tree, "0", baselines_per_batch=bpb, **kw)
+        wall = time.perf_counter() - t0
+        return X, lat, wall, launch_counts(), torch.cuda.max_memory_allocated() / 1e9
+
+    runs, model_f32 = {}, None
+    for dtype, counter in (("float32", "head_fwd"), ("bfloat16_full", "head_fwd_bf16")):
+        out = {}
+        for path in ("kernels", "plain"):
+            model = loaded(dtype, path == "kernels")
+            X, lat, wall, counts, peak = timed_matrix(model)
+            out[path] = dict(X=X, lat=lat, wall=wall, counts=counts, peak=peak)
+            if path == "kernels" and dtype == "float32":
+                model_f32 = model
+        k, p = out["kernels"], out["plain"]
+        row = {"phase": "eval", "compute_dtype": dtype, "baselines": nbase,
+               "patches": patches, "chunks": nchunks, "baselines_per_batch": bpb,
+               "wall_s": k["wall"], "patches_per_s": patches / k["wall"],
+               "baselines_per_s": nbase / k["wall"], "peak_mem_gb": k["peak"],
+               "plain_wall_s": p["wall"], "plain_patches_per_s": patches / p["wall"],
+               "plain_peak_mem_gb": p["peak"],
+               "k3_launches": k["counts"][counter],
+               "plain_k3_launches": p["counts"]["head_fwd"] + p["counts"]["head_fwd_bf16"],
+               "latents_rel_err": rel_err(torch.from_numpy(k["lat"]),
+                                          torch.from_numpy(p["lat"])),
+               "X_rel_err": rel_err(torch.from_numpy(k["X"]), torch.from_numpy(p["X"])),
+               "soft_assign_equal_share": float(np.mean(
+                   np.argmin(k["X"], 0) == np.argmin(p["X"], 0))),
+               "finite": bool(np.isfinite(k["X"]).all() and np.isfinite(k["lat"]).all())}
+        emit(row)
+        runs[dtype] = row
+        if row["k3_launches"] != nchunks or row["plain_k3_launches"] != 0:
+            raise AssertionError(f"K3 launches {row['k3_launches']} on the kernel path "
+                                 f"({nchunks} chunks), {row['plain_k3_launches']} plain")
+        if not row["finite"] or k["X"].shape != (10, nbase):
+            raise AssertionError(f"eval output malformed: {k['X'].shape}")
+        if dtype == "float32" and (row["latents_rel_err"] > 1e-5 or row["X_rel_err"] > 1e-4
+                                   or row["soft_assign_equal_share"] != 1.0):
+            raise AssertionError(f"float32 eval: kernel and plain paths disagree: {row}")
+
+    # cuDNN's transposed convolutions (dgrad engines) may sum in another order from one
+    # call to the next, and the 1D AEs' input depends on the 2D AE's output, so two
+    # runs on the card need not agree bit for bit (the CPU tests hold the serial and
+    # pipelined paths equal): the serial path is held to the float32 gates
+    X_ser, lat_ser, serial_wall, _, _ = timed_matrix(model_f32, decode_lookahead=0)
+    X_pipe, lat_pipe, pipe_wall, _, _ = timed_matrix(model_f32)
+    t0 = time.perf_counter()
+    for i in range(0, nbase, bpb):      # the host decode alone, as the decode thread runs it
+        read_baselines_patches_batch(tree, "0", list(range(i, min(nbase, i + bpb))),
+                                     uvdist=True)
+    decode_s = time.perf_counter() - t0
+    _, _, x, uv = read_baselines_patches_batch(tree, "0", list(range(bpb)), uvdist=True)
+    dev = next(model_f32.parameters()).device
+    x, uv = torch.from_numpy(x).to(dev), torch.from_numpy(uv).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model_f32(x, uv).Mu
+
+    t0 = time.perf_counter()
+    res = evaluate_sap(model_f32, tree, "0", run_tsne=False, out_dir=None)
+    sap_s = time.perf_counter() - t0
+    X_demeaned = X_pipe - X_pipe.mean(axis=1, keepdims=True)
+    row = {"phase": "eval_pipeline", "serial_s": serial_wall, "pipelined_s": pipe_wall,
+           "host_decode_s": decode_s, "forward_ms_per_chunk": host_ms(forward),
+           "patches_per_chunk": int(x.shape[0]),
+           "serial_vs_pipelined": {
+               "bit_identical": bool(np.array_equal(X_ser, X_pipe)
+                                     and np.array_equal(lat_ser, lat_pipe)),
+               "X_rel_err": rel_err(torch.from_numpy(X_ser), torch.from_numpy(X_pipe)),
+               "latents_rel_err": rel_err(torch.from_numpy(lat_ser),
+                                          torch.from_numpy(lat_pipe))},
+           "evaluate_sap_s": sap_s,
+           "evaluate_sap_X_rel_err": rel_err(torch.from_numpy(res.X),
+                                             torch.from_numpy(X_demeaned)),
+           "soft_assign_histogram": np.bincount(res.soft_assign, minlength=10).tolist()}
+    emit(row)
+    sp = row["serial_vs_pipelined"]
+    if sp["X_rel_err"] > 1e-4 or sp["latents_rel_err"] > 1e-5:
+        raise AssertionError(f"the pipelined eval disagrees with the serial one: {sp}")
+    if row["evaluate_sap_X_rel_err"] > 1e-4 or res.X.shape != X_pipe.shape:
+        raise AssertionError("evaluate_sap's X is not the row-demeaned distance matrix")
+    return model_f32, runs
+
+
+def export_phase(model, tree) -> dict:
+    """export_forward of the full-width float32 model with a symbolic batch on the card,
+    load_exported of it, called at batch 35 and 96: the graph holds the K3 operator,
+    each call launches K3 once, and the outputs lie within 1e-6 of the eager kernel
+    path's."""
+    from lshm_tpu_torch.data import read_baselines_patches_batch
+    from lshm_tpu_torch.eval import export_forward, load_exported
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.losses import pairwise_sq_dists
+
+    dev = next(model.parameters()).device
+    t0 = time.perf_counter()
+    blob = export_forward(model, batch_size=None)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_exported(blob)
+    load_s = time.perf_counter() - t0
+    nodes = [str(n.target) for n in fn.graph.nodes if n.op == "call_function"]
+    head_nodes = [n for n in nodes if "lshm_tpu_torch.head_fwd" in n]
+    _, _, patches, uv = read_baselines_patches_batch(tree, "0", [0, 1, 2], uvdist=True)
+    row = {"phase": "export", "blob_mb": len(blob) / 1e6, "export_s": export_s,
+           "load_s": load_s, "graph_nodes": len(nodes), "head_fwd_nodes": len(head_nodes)}
+    for n in (35, 96):
+        x = torch.from_numpy(patches[:n]).to(dev)
+        u = torch.from_numpy(uv[:n]).to(dev)
+        fn(x, u)                                   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        got = fn(x, u)
+        torch.cuda.synchronize()
+        k3 = launch_counts()["head_fwd"]
+        with torch.inference_mode():
+            out = model(x, u)
+            want = (out.xrecon, out.Mu, pairwise_sq_dists(out.Mu, model.khm.M) ** 2)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        row[f"batch_{n}"] = {"k3_launches": k3, "rel_err": max(errs),
+                             "bit_identical": all(torch.equal(g, w)
+                                                  for g, w in zip(got, want)),
+                             "shapes": [list(g.shape) for g in got]}
+        if k3 != 1 or max(errs) > 1e-6 or list(got[2].shape) != [n, 10]:
+            raise AssertionError(f"the exported forward at batch {n}: {row}")
+    x96 = torch.from_numpy(patches[:96]).to(dev)
+    u96 = torch.from_numpy(uv[:96]).to(dev)
+
+    def eager():
+        with torch.inference_mode():
+            out = model(x96, u96)
+            return out.xrecon, out.Mu, pairwise_sq_dists(out.Mu, model.khm.M) ** 2
+
+    row["ms_batch_96"] = host_ms(lambda: fn(x96, u96), repeats=10)
+    row["eager_ms_batch_96"] = host_ms(eager, repeats=10)
+    emit(row)
+    if len(head_nodes) != 1:
+        raise AssertionError(f"the exported graph holds {len(head_nodes)} K3 nodes")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1168,6 +1474,17 @@ def main() -> int:
     kernels += k6_rows
     lbfgs = timed("lbfgs", in_tmpdir, lambda d: lbfgs_phase(dev, tree, d))
     timed("agree_lbfgs", agree_lbfgs_phase, dev, tree)
+
+    def from_checkpoint(tmpdir):
+        """Train, cut and resume (phase 12), then evaluate (13) and export (14) the
+        resumed run's final checkpoint."""
+        ckpt = timed("resume", resume_phase, tree, tmpdir)
+        eval_tree = timed("eval_data", lambda: synth_extract(
+            nstations=EVAL_STATIONS, ntime=384, nfreq=512, seed=1))
+        model, evals = timed("eval", eval_phase, eval_tree, ckpt)
+        return evals, timed("export", export_phase, model, eval_tree)
+
+    evals, export = in_tmpdir(from_checkpoint)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2
@@ -1186,6 +1503,11 @@ def main() -> int:
         k["launches_fourier"] = fourier[counter]
         if counter in lbfgs:
             k["launches_lbfgs"] = lbfgs[counter]
+        if counter in ("head_fwd", "head_fwd_bf16"):   # K3: per chunk, per exported call
+            k["launches_eval"] = evals["float32" if counter == "head_fwd"
+                                       else "bfloat16_full"]["k3_launches"]
+        if counter == "head_fwd":
+            k["launches_export"] = [export[f"batch_{n}"]["k3_launches"] for n in (35, 96)]
         k["status"] = "ported, held against its plain version"
     emit({"kernels": kernels, "still_to_port": []})
     print(card(), flush=True)

@@ -1,5 +1,7 @@
 """LOFAR ``MS_extract.h5`` reading on the host (numpy; port of the read half of
-``lshm_tpu/data/h5io.py``; reference: src/lofar_tools.py:51-463).
+``lshm_tpu/data/h5io.py``; reference: src/lofar_tools.py:51-463): the training reads
+and the evaluation readers (``read_baselines_patches_batch``, ``read_baseline_patches``,
+``read_baseline_flat``), host decode only.
 
 Every reader takes a ``source``: a path to an H5 file (``h5py`` is imported only then)
 or the same tree held in memory as nested dicts of numpy arrays
@@ -24,6 +26,8 @@ import os
 from typing import Any, Iterator, Mapping, Sequence, Union
 
 import numpy as np
+
+from lshm_tpu_torch.data.patches import patchify
 
 SPEED_OF_LIGHT = 2.99792458e8
 
@@ -87,16 +91,20 @@ def compute_uv(source: Source, sap: str, baseline_ids: Sequence[int]) -> np.ndar
     frequency: antenna XYZ differences rotated by the start-time hour angle and scaled
     by 1/lambda (reference: src/lofar_tools.py:90-110,143-151).  float32 [B, 2]."""
     with _open(source) as f:
-        hms = f["measurement"]["info"]["start_time"][0].decode("ascii").split()[1].split(":")
-        start_hours = float(hms[0]) + float(hms[1]) / 60.0 + float(hms[2]) / 3600.0
-        theta = start_hours / 24.0 * (2.0 * math.pi)
-        g = f["measurement"]["saps"][sap]
-        frq = g["central_frequencies"]
-        inv_lambda = frq[frq.shape[0] // 2] / SPEED_OF_LIGHT
-        rot00 = math.cos(theta) * inv_lambda
-        rot01 = math.sin(theta) * inv_lambda
-        baselines = g["baselines"][...]
-        xyz = g["antenna_locations"]["XYZ"][...]
+        return _compute_uv_open(f, sap, baseline_ids)
+
+
+def _compute_uv_open(f, sap: str, baseline_ids: Sequence[int]) -> np.ndarray:
+    hms = f["measurement"]["info"]["start_time"][0].decode("ascii").split()[1].split(":")
+    start_hours = float(hms[0]) + float(hms[1]) / 60.0 + float(hms[2]) / 3600.0
+    theta = start_hours / 24.0 * (2.0 * math.pi)
+    g = f["measurement"]["saps"][sap]
+    frq = g["central_frequencies"]
+    inv_lambda = frq[frq.shape[0] // 2] / SPEED_OF_LIGHT
+    rot00 = math.cos(theta) * inv_lambda
+    rot01 = math.sin(theta) * inv_lambda
+    baselines = g["baselines"][...]
+    xyz = g["antenna_locations"]["XYZ"][...]
     out = np.zeros((len(baseline_ids), 2), dtype=np.float32)
     for i, b in enumerate(baseline_ids):
         s1, s2 = int(baselines[b][0]), int(baselines[b][1])
@@ -134,11 +142,88 @@ def read_baseline_channels(source: Source, sap: str, baseline_ids: Sequence[int]
         g = f["measurement"]["saps"][sap]
         x = _decode_channels(g["visibilities"], g["visibility_scale_factors"],
                              baseline_ids, num_channels)
-    if patch_size is not None:
-        _, ntime, nfreq, _ = x.shape
-        pt, pf = max(ntime, patch_size), max(nfreq, patch_size)
-        if (pt, pf) != (ntime, nfreq):
-            pad = np.zeros((x.shape[0], pt, pf, x.shape[-1]), dtype=np.float32)
-            pad[:, :ntime, :nfreq] = x
-            x = pad
-    return x
+    return x if patch_size is None else _pad_to(x, patch_size)
+
+
+def _pad_to(x: np.ndarray, patch_size: int) -> np.ndarray:
+    """[B, T, F, C] zero-padded to at least ``patch_size`` along time and freq."""
+    _, ntime, nfreq, _ = x.shape
+    pt, pf = max(ntime, patch_size), max(nfreq, patch_size)
+    if (pt, pf) == (ntime, nfreq):
+        return x
+    pad = np.zeros((x.shape[0], pt, pf, x.shape[-1]), dtype=np.float32)
+    pad[:, :ntime, :nfreq] = x
+    return pad
+
+
+# ------------------------------------------------------------------ evaluation readers
+
+def read_baseline_flat(source: Source, sap: str, baseline_id: int,
+                       num_channels: int = 4) -> np.ndarray:
+    """Full un-patched spectrogram of one baseline, clamped to +-1e6
+    (reference: src/lofar_tools.py:352-406).  float32 [ntime, nfreq, C]."""
+    x = read_baseline_channels(source, sap, [baseline_id], num_channels)[0]
+    return np.clip(x, -1e6, 1e6)
+
+
+def read_baselines_patches_batch(source: Source, sap: str, baseline_ids: Sequence[int],
+                                 patch_size: int = 128, num_channels: int = 4,
+                                 uvdist: bool = False, give_baselines: bool = False,
+                                 use_native: bool | None = None):
+    """Evaluation reader for many baselines in one open of the source: the same as
+    ``read_baseline_patches`` per id (patch, clamp to +-1e6, z-normalise each baseline
+    over its own patches; reference: src/lofar_tools.py:214-349).  ``use_native=True``
+    raises (the port has no native decoder yet); None and False decode in numpy.
+
+    Returns (patchx, patchy, patches [B*ppb, ps, ps, C], [uv [B*ppb, 2]],
+    [station_pairs [B, 2]]), baseline-major."""
+    if use_native:
+        raise NotImplementedError(
+            "use_native=True: the native host decoder (lshm_tpu/native) is not ported "
+            "yet (ROADMAP section A6, native host decoder); the port decodes in numpy")
+    if len(baseline_ids) == 0:
+        raise ValueError("read_baselines_patches_batch: baseline_ids must be non-empty")
+    if num_channels not in (4, 8):
+        raise ValueError(f"num_channels must be 4 or 8, got {num_channels}")
+    with _open(source) as f:
+        g = f["measurement"]["saps"][sap]
+        x = _decode_channels(g["visibilities"], g["visibility_scale_factors"],
+                             baseline_ids, num_channels)
+        uv = _compute_uv_open(f, sap, baseline_ids) if uvdist else None
+        pairs = (np.asarray(g["baselines"][...])[np.asarray(baseline_ids)]
+                 if give_baselines else None)
+    patches, (px, py) = patchify(_pad_to(x, patch_size), patch_size)
+    patches = np.clip(patches, -1e6, 1e6)
+    # per-baseline z-norm over that baseline's own patch group (baseline-major rows)
+    grouped = patches.reshape(len(baseline_ids), px * py, *patches.shape[1:])
+    mean = grouped.mean(axis=(1, 2, 3, 4), keepdims=True)
+    std = grouped.std(axis=(1, 2, 3, 4), keepdims=True)
+    patches = ((grouped - mean) / np.where(std > 0, std, 1.0)).reshape(patches.shape)
+    result: list = [px, py, patches]
+    if uvdist:
+        result.append(np.repeat(uv, px * py, axis=0))
+    if give_baselines:
+        result.append(pairs)
+    return tuple(result)
+
+
+def read_baseline_patches(source: Source, sap: str, baseline_id: int,
+                          patch_size: int = 128, num_channels: int = 4,
+                          give_baseline: bool = False, uvdist: bool = False):
+    """Evaluation reader for one baseline: patch, clamp to +-1e6, always z-normalise
+    (reference: src/lofar_tools.py:214-349).
+
+    Returns (patchx, patchy, patches [P, ps, ps, C], [uv [P, 2]], [(station1, station2)])."""
+    x = read_baseline_channels(source, sap, [baseline_id], num_channels, patch_size)
+    patches, (px, py) = patchify(x, patch_size)
+    patches = np.clip(patches, -1e6, 1e6)
+    std = patches.std()
+    patches = (patches - patches.mean()) / (std if std > 0 else 1.0)
+    result: list = [px, py, patches]
+    if uvdist:
+        uv = compute_uv(source, sap, [baseline_id])
+        result.append(np.broadcast_to(uv, (patches.shape[0], 2)).copy())
+    if give_baseline:
+        with _open(source) as f:
+            result.append(tuple(f["measurement"]["saps"][sap]["baselines"][baseline_id]))
+    return tuple(result)

@@ -168,17 +168,47 @@ class MinibatchSampler:
                          patchx=px, patchy=py, num_baselines=cfg.batch_size)
 
 
+class DeviceStaging:
+    """Host arrays -> tensors on ``device``.  On a CUDA device ``put`` (from any thread)
+    pins the arrays and copies them with ``non_blocking`` on a side stream, and ``take``
+    makes the consumer's current stream wait for that copy."""
+
+    def __init__(self, device: torch.device | str):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def put(self, *arrays: np.ndarray) -> tuple[list[torch.Tensor], Any]:
+        """The arrays as device tensors, and the event their copy records (None off
+        the card)."""
+        ts = [torch.from_numpy(a) for a in arrays]
+        if self.stream is None:
+            return [t.to(self.device) for t in ts], None
+        with torch.cuda.stream(self.stream):
+            ts = [t.pin_memory().to(self.device, non_blocking=True) for t in ts]
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return ts, ready
+
+    def take(self, tensors, ready) -> None:
+        """Order the current stream after the copy of ``tensors``."""
+        if ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(ready)
+        for t in tensors:
+            t.record_stream(stream)   # allocated on the copy stream, used here
+
+
 class PrefetchIterator:
     """Background thread that samples on the host and copies to ``device``, keeping a
     bounded queue so the device never waits on decoding.  On a CUDA device the host
     arrays are pinned and copied with ``non_blocking`` on a side stream; the consumer's
-    stream waits for that copy.  A producer error is raised in the consumer."""
+    stream waits for that copy (``DeviceStaging``).  A producer error is raised in the
+    consumer."""
 
     def __init__(self, sampler: MinibatchSampler, size: int = 2,
                  device: torch.device | str = "cpu"):
-        self._device = torch.device(device)
-        self._cuda = self._device.type == "cuda"
-        self._copy_stream = torch.cuda.Stream(self._device) if self._cuda else None
+        self._staging = DeviceStaging(device)
         self._q: queue.Queue = queue.Queue(maxsize=max(size, 1))
         self._stop = threading.Event()
         self._err: BaseException | None = None
@@ -186,24 +216,13 @@ class PrefetchIterator:
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if not self._cuda:
-            return t.to(self._device)
-        with torch.cuda.stream(self._copy_stream):
-            return t.pin_memory().to(self._device, non_blocking=True)
-
     def _producer(self) -> None:
         while not self._stop.is_set():
             try:
                 mb = self._sampler.sample()
-                item = Minibatch(x=self._to_device(mb.x), uv=self._to_device(mb.uv),
-                                 patchx=mb.patchx, patchy=mb.patchy,
+                (x, uv), ready = self._staging.put(mb.x, mb.uv)
+                item = Minibatch(x=x, uv=uv, patchx=mb.patchx, patchy=mb.patchy,
                                  num_baselines=mb.num_baselines)
-                ready = None
-                if self._cuda:
-                    ready = torch.cuda.Event()
-                    ready.record(self._copy_stream)
             except Exception as e:    # surfaced in the consumer by __next__
                 self._err = e
                 self._stop.set()
@@ -226,11 +245,7 @@ class PrefetchIterator:
             except queue.Empty:
                 if self._err is not None:
                     raise RuntimeError("prefetch failed") from self._err
-        if ready is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(ready)
-            for t in (item.x, item.uv):
-                t.record_stream(stream)   # allocated on the copy stream, used here
+        self._staging.take((item.x, item.uv), ready)
         return item
 
     def close(self) -> None:

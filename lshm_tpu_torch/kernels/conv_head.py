@@ -235,15 +235,34 @@ def head_input_grad(x, w0, b0, w1, b1, g1) -> torch.Tensor:
     return dx
 
 
+@torch.library.custom_op("lshm_tpu_torch::head_fwd", mutates_args=())
+def head_fwd_op(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                b1: torch.Tensor) -> torch.Tensor:
+    """K3 as a registered operator, ``torch.ops.lshm_tpu_torch.head_fwd``: its body is
+    ``head_forward`` (the kernel for a CUDA tensor, the plain version for a CPU one).
+    Tracing (``torch.export``) sees one opaque node and its fake implementation below,
+    so an exported program calls K3 where it runs, instead of the trace of whichever
+    version ran while it was exported."""
+    return head_forward(x, w0, b0, w1, b1)
+
+
+@head_fwd_op.register_fake
+def _(x, w0, b0, w1, b1):
+    B, P = x.shape[0], x.shape[1]
+    return x.new_empty((B, P // 4, P // 4, F1))
+
+
 class EncHead(torch.autograd.Function):
     """The head with a backward that rematerialises both stages: K5 for the input's
     gradient, K4 for the weights' (its float32 sums cast to the weights' dtype once,
-    as the JAX custom VJP does), each only when asked for."""
+    as the JAX custom VJP does), each only when asked for.  The forward is the
+    registered K3 operator.  Nothing is saved unless a gradient is needed, so the
+    head runs on inference tensors too."""
 
     @staticmethod
     def forward(ctx, x, w0, b0, w1, b1):
         ctx.save_for_backward(x, w0, b0, w1, b1)
-        return head_forward(x, w0, b0, w1, b1)
+        return torch.ops.lshm_tpu_torch.head_fwd(x, w0, b0, w1, b1)
 
     @staticmethod
     def backward(ctx, g1):

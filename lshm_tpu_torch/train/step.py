@@ -39,9 +39,10 @@ class TrainState:
     """The model and its optimizer: Adam (``make_train_step``), or an ``LBFGSState``
     over the active group's parameters (``make_lbfgs_train_step``; JAX's
     ``LBFGSTrainState``).  Both have ``state_dict``/``load_state_dict``, which the
-    Trainer's revert and checkpoint use for either kind."""
+    Trainer's revert and checkpoint use for either kind.  ``opt`` is None between a
+    params-only ``Trainer.load`` and the first step."""
     model: CascadedAE
-    opt: torch.optim.Optimizer | LBFGSState
+    opt: torch.optim.Optimizer | LBFGSState | None
     step: int = 0
 
 

@@ -4,10 +4,11 @@ reference: src/kharmonic_lofar.py:115-222).
 Epochs x iterations x ADMM schedule, the published alpha/beta/gamma ramp with the
 Adam -> L-BFGS switch (``RampStage.optimizer``, else ``optim.optimizer``), alternating
 model groups, a prefetching input pipeline, metric logging, the one-step-delayed
-non-finite revert, and a checkpoint at the end.  A switch of (optimizer kind, group)
-carries the parameters over and resets the optimizer state, as in JAX; the L-BFGS
-state persists across the minibatches of one (kind, group).  One device;
-``Trainer(cfg)`` runs on the card and raises when there is none.
+non-finite revert, and checkpoints with exact resume (``load``: parameters, optimizer
+state, step and the sampler position).  A switch of (optimizer kind, group) carries
+the parameters over and resets the optimizer state, as in JAX; the L-BFGS state
+persists across the minibatches of one (kind, group).  One device; ``Trainer(cfg)``
+runs on the card and raises when there is none.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from lshm_tpu_torch.train.step import (
     make_optimizer,
     make_train_step,
 )
-from lshm_tpu_torch.utils.checkpoint import save_checkpoint
+from lshm_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from lshm_tpu_torch.utils.metrics import MetricLogger
 
 
@@ -48,6 +49,8 @@ class Trainer:
         self.logger = logger or MetricLogger(echo=True)
         self.state: TrainState | None = None
         self._opt_kind: tuple[str, str] | None = None    # (optimizer kind, group)
+        self._resume_epoch = 0       # where the next run() starts (set by load)
+        self._resume_iter = 0
 
     @property
     def model(self):
@@ -55,7 +58,9 @@ class Trainer:
 
     def _ensure_state(self, kind: str, group: str) -> None:
         """Build the optimizer state of (kind, group) on a switch; the parameters (and
-        the step count) carry over."""
+        the step count) carry over.  After a params-only ``load`` the state holds the
+        model and no optimizer, and ``_opt_kind`` is None, so the first step builds
+        one around the loaded parameters."""
         if self.state is not None and (kind, group) == self._opt_kind:
             return
         if self.state is None:
@@ -90,8 +95,13 @@ class Trainer:
         def place(a):
             return torch.from_numpy(a).to(self.device)
 
-        for epoch in range(cfg.train.num_epochs):
-            sampler.reseed(epoch)   # per-epoch stream
+        start_epoch, start_iter = self._resume_epoch, self._resume_iter
+        self._resume_epoch = self._resume_iter = 0   # consumed: a second run() starts fresh
+        for epoch in range(start_epoch, cfg.train.num_epochs):
+            sampler.reseed(epoch)   # per-epoch stream: a resumed run sees the same data
+            first_iter = start_iter if epoch == start_epoch else 0
+            if first_iter:
+                sampler.skip(first_iter)   # replay the rng draws, before the prefetch thread
             stage = ramp_stage_for_epoch(cfg.train.ramp, epoch)
             src = stage if stage is not None else cfg.loss
             w = LossWeights(alpha=src.alpha, beta=src.beta, gamma=src.gamma,
@@ -114,7 +124,7 @@ class Trainer:
                     self.logger.log_step(epoch, pit, metrics, patches=patches)
 
             try:
-                for it in range(cfg.train.iters_per_epoch):
+                for it in range(first_iter, cfg.train.iters_per_epoch):
                     if source is not None:
                         mb = next(source)
                         x, uv = mb.x, mb.uv
@@ -159,15 +169,56 @@ class Trainer:
     def save(self, ckpt_dir: str, step: int, epoch: int | None = None,
              iter_in_epoch: int = 0) -> None:
         """Parameters, optimizer state (Adam's, or the L-BFGS state) and step in one
-        file, with ``opt_kind`` = [kind, group]; the config beside it."""
+        file, with ``opt_kind`` = [kind, group]; the config and the position (epoch,
+        iteration within it) beside it.  Before any step after a params-only ``load``
+        there is no optimizer state, and the file holds the parameters only."""
         if self.state is None:
             print("warning: nothing to checkpoint (no training has run); skipping save")
             return
         s = self.state
-        save_checkpoint(ckpt_dir, {
-            "params": s.model.state_dict(),
-            "optimizer": s.opt.state_dict(),
-            "step": s.step,
-            "opt_kind": list(self._opt_kind),
-        }, step, extras={"config": self.cfg.to_dict(), "epoch": epoch,
-                         "iter": int(iter_in_epoch)})
+        state = {"params": s.model.state_dict()}
+        if self._opt_kind is not None:
+            state.update(optimizer=s.opt.state_dict(), step=s.step,
+                         opt_kind=list(self._opt_kind))
+        save_checkpoint(ckpt_dir, state, step,
+                        extras={"config": self.cfg.to_dict(), "epoch": epoch,
+                                "iter": int(iter_in_epoch)})
+
+    def load(self, ckpt_dir: str, step: int | None = None) -> None:
+        """Restore a checkpoint (default: the latest step).  A file with ``optimizer``
+        and ``opt_kind`` resumes exactly: the optimizer of the saved (kind, group) is
+        built first, then the parameters, its state and the step are loaded into it.
+        A params-only file (an imported reference model) loads the parameters; the
+        optimizer state is built around them at the first step.  The sidecar's epoch
+        and iteration set where the next ``run()`` starts; a load with no recorded
+        position starts from epoch 0 (never from an earlier load's position)."""
+        saved, extras = restore_checkpoint(ckpt_dir, step, map_location="cpu")
+        self.state, self._opt_kind = None, None
+        if "optimizer" in saved and "opt_kind" in saved:
+            kind, group = saved["opt_kind"]
+            self._ensure_state(kind, group)
+            s = self.state
+            s.model.load_state_dict(saved["params"])
+            if kind == "adam":
+                s.opt.load_state_dict(saved["optimizer"])   # Adam moves its moments
+            else:            # the L-BFGS state is taken by reference: onto the device
+                s.opt.load_state_dict(_to_device(saved["optimizer"], self.device))
+            s.step = int(saved["step"])
+        else:
+            model = init_model(self.cfg, self.device)
+            model.load_state_dict(saved["params"])
+            self.state = TrainState(model, opt=None, step=0)
+        if extras and extras.get("epoch") is not None:
+            self._resume_epoch = int(extras["epoch"])
+            self._resume_iter = int(extras.get("iter") or 0)
+        else:
+            self._resume_epoch = self._resume_iter = 0
+
+
+def _to_device(obj, device: torch.device):
+    """Every tensor in nested dicts (the L-BFGS state's fields) moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    return obj

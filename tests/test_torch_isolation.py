@@ -1,6 +1,7 @@
-"""Boundaries of the PyTorch port: it imports neither JAX nor the JAX package, its entry
-points refuse to fall back to the CPU, its kernel wrappers refuse inputs the kernels do
-not take, unported config fields raise, and chip_smoke.py fails without a card."""
+"""Boundaries of the PyTorch port: it imports neither JAX nor the JAX package (nor
+sklearn, matplotlib or PIL, which the card's machine lacks), its entry points refuse to
+fall back to the CPU, its kernel wrappers refuse inputs the kernels do not take,
+unported config fields and options raise, and chip_smoke.py fails without a card."""
 
 import ast
 import dataclasses
@@ -26,7 +27,8 @@ for m in pkgutil.walk_packages(lshm_tpu_torch.__path__, "lshm_tpu_torch."):
     importlib.import_module(m.name)
 bad = [k for k, m in sys.modules.items() if m is not None and (
        k == "lshm_tpu" or k.startswith("lshm_tpu.")
-       or k.split(".")[0] in ("jax", "flax", "optax", "orbax"))]
+       or k.split(".")[0] in ("jax", "flax", "optax", "orbax", "sklearn", "matplotlib",
+                              "PIL"))]
 assert not bad, bad
 print("imported", len([k for k in sys.modules if k.startswith("lshm_tpu_torch")]))
 """
@@ -65,6 +67,46 @@ def test_trainer_without_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(tc.Config())
+
+
+def _eval_model():
+    from lshm_tpu_torch.models import CascadedAE
+
+    return CascadedAE(tc.ModelConfig(latent_dim=16, latent_dim_1d=8, num_clusters=4))
+
+
+def test_evaluation_without_device_needs_a_card(monkeypatch):
+    from lshm_tpu_torch.data import synth_extract
+    from lshm_tpu_torch.eval import baseline_distance_matrix, save_recon_panels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = synth_extract()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        baseline_distance_matrix(_eval_model(), tree, "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        save_recon_panels(_eval_model(), tree, "0", [0], "unused")
+
+
+def test_unported_decoders_raise_by_name():
+    """The device-side decode (ROADMAP A5) and the native host decoder (A6) are not
+    ported: asking for either raises, never a silent host-decode fallback."""
+    from lshm_tpu_torch.data import read_baselines_patches_batch, synth_extract
+    from lshm_tpu_torch.eval import baseline_distance_matrix
+
+    tree = synth_extract()
+    with pytest.raises(NotImplementedError, match="A5"):
+        baseline_distance_matrix(_eval_model(), tree, "0", device="cpu",
+                                 device_decode=True)
+    with pytest.raises(NotImplementedError, match="A6"):
+        read_baselines_patches_batch(tree, "0", [0], use_native=True)
+
+
+def test_evaluation_refuses_a_model_on_another_device():
+    from lshm_tpu_torch.data import synth_extract
+    from lshm_tpu_torch.eval import baseline_distance_matrix
+
+    with pytest.raises(ValueError, match="move the model"):
+        baseline_distance_matrix(_eval_model(), synth_extract(), "0", device="meta")
 
 
 def _khm_inputs():

@@ -90,6 +90,53 @@ def test_step_matches_jax(jax_reference, kernels):
             np.testing.assert_array_equal(got[path], init[path], err_msg=name)
 
 
+def _preset_cfg(mod, name):
+    cfg = mod.preset(name)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=2),
+        model=dataclasses.replace(cfg.model, **MODEL),
+        optim=dataclasses.replace(cfg.optim, adam_lr=1e-4),
+        train=dataclasses.replace(cfg.train, admm_iters=1, seed=3))
+
+
+def test_ae2d_adam_preset_step_matches_jax():
+    """Config #1, ``preset("ae2d_adam")``: the 2D AE alone under Adam with the
+    reconstruction loss only (alpha = beta = gamma = rica_lambda = 0, no RICA layers).
+    One step (one ADMM iteration) of the port (its defaults: the kernels' plain versions on the CPU) against
+    the JAX step on group "ae2d": the losses and all 97 parameter leaves at the suite's
+    tolerances, and the 1D AEs and the centroids unmoved."""
+    jcfg, cfg = _preset_cfg(jc, "ae2d_adam"), _preset_cfg(tc, "ae2d_adam")
+    group = cfg.optim.group_schedule[0]
+    assert group == jcfg.optim.group_schedule[0] == "ae2d"
+    loss = cfg.loss
+    kw = dict(alpha=loss.alpha, beta=loss.beta, gamma=loss.gamma, rho=loss.rho,
+              rica_lambda=loss.rica_lambda)
+    state = init_train_state(cfg, "cpu", group)
+    init_sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    params = jax.tree.map(jnp.asarray, to_flax(init_sd))
+    tx = jax_make_optimizer(jcfg, params, group)
+    jstate = JTrainState(params=params, opt_state=tx.init(params),
+                         step=jnp.zeros((), jnp.int32))
+    jstep = jax_make_train_step(JCascadedAE(cfg=jcfg.model), tx, jcfg, num_groups=2,
+                                donate=False, jit=False)
+    x, uv = _batch()
+    jstate, want_metrics = jstep(jstate, jnp.asarray(x), jnp.asarray(uv),
+                                 JLossWeights(**kw))
+    state, metrics = make_train_step(cfg, 2)(state, torch.tensor(x), torch.tensor(uv),
+                                             LossWeights(**kw))
+    for k, v in jax.device_get(want_metrics).items():
+        np.testing.assert_allclose(metrics[k].numpy(), v, rtol=1e-5, atol=1e-6, err_msg=k)
+    leaves = lambda tree: dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    want = leaves(jax.device_get(jstate.params))
+    got, init = leaves(to_flax(state.model.state_dict())), leaves(to_flax(init_sd))
+    assert len(want) == len(got) == 97
+    for path, v in want.items():
+        name = jax.tree_util.keystr(path)
+        np.testing.assert_allclose(got[path], v, rtol=1e-5, atol=1e-6, err_msg=name)
+        if "'ae2d'" not in name:
+            np.testing.assert_array_equal(got[path], init[path], err_msg=name)
+
+
 def test_frozen_parameters_are_not_given_to_adam():
     cfg = _cfg(tc)
     model = init_train_state(cfg, "cpu").model
