@@ -27,26 +27,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (B = 16), each also with its plain version's distance from the head in
                 float64; bit-identical repeats; yardsticks in bf16, channels-last), with
                 a SHA-256 digest of bf16 K3's, K4's and K5's outputs
-  4. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
+  4. device_decode   the decode on the card (data/device_decode.py) at full width on
+                the training extract, the numpy host path as the oracle with JAX's gates
+                (2e-4 relative, 2e-5 absolute): device_decode_train on one sample_raw
+                against sample() of a twin sampler (420 patches, 840 with augment; the
+                same rng state after), bit for bit with the normalisation off;
+                device_decode_patchify on a chunk of 8 baselines against
+                read_baselines_patches_batch; two calls bit for bit; the
+                DeviceDecodePrefetcher's minibatches bit for bit the same decode on the
+                default stream while the consumer's stream is held busy (the
+                record_stream check); host ms of sample() and sample_raw(), device ms of
+                the decode, and the bytes each pipeline copies to the card a minibatch
+  5. trainer    the full-width full_khm Adam trainer (12 baselines x 35 patches = 420
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
-                synthetic extract held in memory, with every kernel's launch count
-  5. agree      one minibatch (2 ADMM iterations) through the kernels and through the
+                synthetic extract held in memory, with every kernel's launch count, run
+                twice: decoding on the card (the default, as every trainer phase below)
+                and on the host (data.device_decode=False); K1-K4 launch 30, 30, 60, 30
+                in each, and the first minibatch's per-term losses agree within JAX's
+                5e-3 relative gate
+  6. agree      one minibatch (2 ADMM iterations) through the kernels and through the
                 plain path from the same state: per-term metrics within 1e-4; and the
                 cascade forward on the card against the CPU on two patches
-  6. trainer_bf16     the same run of preset full_khm_bf16 (bfloat16_full): K1, K2 and
+  7. trainer_bf16     the same run of preset full_khm_bf16 (bfloat16_full): K1, K2 and
                 the bf16 K3 and K4 launch 30, 30, 60 and 30 times; then the first ADMM
                 iteration of the first minibatch from the same initial parameters
                 in bfloat16_full and in float32, per-term losses within JAX's bf16 gate
                 0.05 |f32| + 5e-3 (tests/test_bf16.py:101-120)
-  7. trainer_fourier  the same run of preset fourier_cascade (the legacy Fourier
+  8. trainer_fourier  the same run of preset fourier_cascade (the legacy Fourier
                 pipeline, latent 224 + 64): K1, K2, K3 and K4 launch exactly 30, 30, 60
-                and 30 times, K5 never; then agree_fourier (as 5) and its first ADMM
-                iteration in bfloat16_full against float32 (as 6)
-  8. head_input_grad  enc_head on a CUDA x that needs its gradient, in float32 and in
+                and 30 times, K5 never; then agree_fourier (as 6) and its first ADMM
+                iteration in bfloat16_full against float32 (as 7)
+  9. head_input_grad  enc_head on a CUDA x that needs its gradient, in float32 and in
                 bf16: K3, K4 and K5 of each dtype launch; float32 dx against autograd
                 through the plain version (2e-5), bf16 dx within one bf16 ulp and
                 bit-identical over two calls
-  9. conv0_probe      the port's probe tool at batch 420, at its default dtype (bf16)
+  10. conv0_probe     the port's probe tool at batch 420, at its default dtype (bf16)
                 and in float32 (its parity check, then K6, its plain version and cuDNN
                 timed), then K6's parity at 420 in each dtype (float32 1e-5, bf16 one
                 ulp) and its gates at 420, at C = 8 and at P = 36 (float32 1e-5 and
@@ -55,41 +70,53 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 bit-identical repeats), a SHA-256 digest of its outputs in each dtype
                 and the profiler's device time per launch: K6's two rows of the
                 kernels line
-  10. lbfgs     the full-width Trainer through the published recipe's Adam -> L-BFGS
+  11. lbfgs     the full-width Trainer through the published recipe's Adam -> L-BFGS
                 switch (preset full_khm_lbfgs as published, bfloat16, its prefetch on):
                 4 epochs x 1 minibatch x 2 ADMM iterations over the groups ae2d, ae1d,
                 khm, ae2d, and its checkpoint; per epoch, timed around the step alone,
                 its kind, group, ms and closure evaluations per ADMM iteration, host
                 synchronisations, peak memory and K1-K4 launches
-  11. agree_lbfgs     the L-BFGS closure in float32 (value, every gradient) through the
+  12. agree_lbfgs     the L-BFGS closure in float32 (value, every gradient) through the
                 kernels (K1-K4 launched) against the plain path (none launched), within
                 1e-4 / 2e-4, and one L-BFGS ADMM iteration through each with both
                 func_evals printed
-  12. resume    float32 full_khm with Adam, 2 epochs x 2 minibatches x 10 ADMM
+  13. resume    float32 full_khm with Adam, 2 epochs x 2 minibatches x 10 ADMM
                 iterations: the uninterrupted run twice (the card's run-to-run
                 distance), then the same training cut at the epoch boundary and
                 mid-epoch (save_every_iters=1) and resumed by a fresh Trainer.load:
                 each resumed run bit-identical to the first run where the two
                 uninterrupted runs are, else within twice their distance; K1-K4
                 launch as often cut and resumed as uninterrupted
-  13. eval      the clustering evaluation of a SAP from the resumed run's checkpoint
+  14. eval      the clustering evaluation of a SAP from the resumed run's checkpoint
                 (synthetic extract of 10 stations: 55 baselines x 35 patches, chunks of
                 8): baseline_distance_matrix in float32 and bfloat16_full, through the
-                kernels (K3 once a chunk) and with pallas_head=False (never), latents
-                1e-5 and X 1e-4 from the plain path in float32 with the same soft
-                assignment (bf16: the distances and the share of equal assignments
-                printed); wall seconds, patches/s, baselines/s, peak memory; the serial
-                path (decode_lookahead=0) against the pipelined one (seconds; the same
-                1e-5 / 1e-4, bit-identity printed), the host decode alone and one
-                chunk's forward; then evaluate_sap without t-SNE
-  14. export    export_forward of that float32 model with a symbolic batch on the card
+                kernels (K3 once a chunk) decoding on the card (the default) and on the
+                host (device_decode=False), and with pallas_head=False (never K3);
+                latents 1e-5 and X 1e-4 from the plain path and between the two decodes
+                in float32 with the same soft assignment (bf16: the distances and the
+                share of equal assignments printed); wall seconds, patches/s,
+                baselines/s, peak memory of each; the serial path (decode_lookahead=0)
+                against the pipelined one (seconds; the same 1e-5 / 1e-4, bit-identity
+                printed), the host decode alone, the raw reads alone, one chunk's
+                device decode and forward; then evaluate_sap without t-SNE
+  15. export    export_forward of that float32 model with a symbolic batch on the card
                 and load_exported of it, called at batch 35 and 96: the graph holds the
                 lshm_tpu_torch.head_fwd node, each call launches K3 once, outputs within
                 1e-6 of the eager kernel path (bit-identity printed), ms at batch 96
-Each path (4, 6, 7, 8, 9, 10, 12, 13 and the exported calls of 14) is driven with the
-launch counts set to 0 just before it and read just after.  Then the kernels table as one JSON line, the card's name and power
-limit, and {"ok": true, "device": {...}} as the last line.  Without a CUDA device it
-exits 2 before printing any result.  It imports nothing of JAX or of the JAX package.
+  16. cli       lshm_tpu_torch.cli.main in this process at full width: train one epoch
+                of 2 minibatches x 10 ADMM iterations with a checkpoint, --log-jsonl and
+                --profile-dir, train --resume to the second epoch, export --ckpt; JSONL
+                records with JAX's keys, the trace names K1-K4, K1-K4 launch 20, 20, 40,
+                20 an epoch, the exported call at batch 96 within 1e-6 of Trainer.load's
+                model with one K3 launch (scan_files replaced by the in-memory extract
+                for the phase, restored after; eval and demo need sklearn and
+                matplotlib, which the card's machine lacks: the CPU tests cover them)
+Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15 and the CLI's train,
+resume and exported call) is driven with the launch counts set to 0 just before it and
+read just after.  Then a seconds line, the kernels table as one JSON line, the card's
+name and power limit, and {"ok": true, "device": {...}} as the last line.  Without a
+CUDA device it exits 2 before printing any result.  It imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -606,11 +633,141 @@ def dx_agreement(dx, dx_p, dx2) -> dict:
             "dx_bit_identical": bool(torch.equal(dx, dx2))}
 
 
-# ---------------------------------------------------------------- phases 4 to 7
+# ------------------------------------------------------------------- phase 4
 
-def flagship_config(tmpdir: str, name: str = "full_khm", compute_dtype: str | None = None):
+HOST_GATE = (2e-4, 2e-5)       # JAX's device decode against the numpy host path
+
+
+def within_host_gate(got: torch.Tensor, want) -> tuple[bool, float]:
+    """Whether ``got`` (on the card) lies within JAX's gate of the numpy ``want``, and
+    the largest absolute difference."""
+    w = torch.as_tensor(want).to(got.device)
+    d = (got - w).abs()
+    rtol, atol = HOST_GATE
+    return bool((d <= atol + rtol * w.abs()).all()), float(d.max())
+
+
+def device_decode_phase(dev, tree) -> dict:
+    """The decode on the card at full width on the training extract, against the numpy
+    host path: ``device_decode_train`` on one ``sample_raw`` against ``sample()`` of a twin
+    sampler (420 patches, 840 with augment) within JAX's gates, bit for bit with the
+    normalisation off, the same rng state after each; ``device_decode_patchify`` on a
+    chunk of 8 baselines against ``read_baselines_patches_batch``; two calls bit for bit;
+    the prefetcher's minibatches bit for bit the same decode run on the default stream,
+    with the consumer's stream held busy before it reads each (a decoded block released
+    to the side stream too early would be overwritten by the next decode).  Then the
+    host ms of ``sample()`` and of ``sample_raw()``, the device ms of the decode (CUDA
+    events) and the bytes each pipeline copies to the card a minibatch."""
+    import dataclasses
+
+    import numpy as np
+
+    from lshm_tpu_torch.config import preset
+    from lshm_tpu_torch.data import (DeviceDecodePrefetcher, MinibatchSampler,
+                                     device_decode_patchify, device_decode_train,
+                                     read_baselines_patches_batch,
+                                     read_baselines_raw_batch)
+    from lshm_tpu_torch.tools.measure import queued_us, time_ms
+
+    base = preset("full_khm").data
+
+    def staged(raw):
+        return [torch.from_numpy(a).to(dev) for a in (raw.vis, raw.scales, raw.flip_flags)]
+
+    def decode(tensors, cfg):
+        return device_decode_train(*tensors, num_channels=cfg.num_channels,
+                                   patch_size=cfg.patch_size, clamp=cfg.clamp,
+                                   normalize=cfg.normalize, augment=cfg.augment)
+
+    row = {"phase": "device_decode", "baselines_per_minibatch": base.batch_size}
+    ok = True
+    for augment in (False, True):
+        for normalize in (True, False):
+            cfg = dataclasses.replace(base, augment=augment, normalize=normalize)
+            s_host = MinibatchSampler([tree], ["0"], cfg, seed=0)
+            s_raw = MinibatchSampler([tree], ["0"], cfg, seed=0)
+            mb, raw = s_host.sample(), s_raw.sample_raw()
+            t = staged(raw)
+            x, x2 = decode(t, cfg), decode(t, cfg)
+            ppb = raw.patchx * raw.patchy * (2 if augment else 1)
+            case = {"patches": int(x.shape[0]),
+                    "same_rng_state": s_host.rng.bit_generator.state
+                    == s_raw.rng.bit_generator.state,
+                    "uv_equal": bool(np.array_equal(np.repeat(raw.uv, ppb, axis=0), mb.uv)),
+                    "repeat_bit_identical": bool(torch.equal(x, x2))}
+            if normalize:
+                case["within_gate"], case["max_abs_err"] = within_host_gate(x, mb.x)
+            else:
+                case["within_gate"] = case["bit_identical"] = bool(
+                    torch.equal(x.cpu(), torch.from_numpy(mb.x)))
+            ok &= all(v for k, v in case.items() if isinstance(v, bool))
+            ok &= case["patches"] == (840 if augment else 420)
+            row[f"train_augment_{augment}_normalize_{normalize}"] = case
+
+    chunk = list(range(8))
+    vis, scales, _ = read_baselines_raw_batch(tree, "0", chunk, uvdist=True)
+    _, _, want, _ = read_baselines_patches_batch(tree, "0", chunk, uvdist=True)
+    v, sc = torch.from_numpy(vis).to(dev), torch.from_numpy(scales).to(dev)
+    x, x2 = device_decode_patchify(v, sc), device_decode_patchify(v, sc)
+    within, err = within_host_gate(x, want)
+    row["eval_chunk"] = {"patches": int(x.shape[0]), "within_gate": within,
+                         "max_abs_err": err, "repeat_bit_identical": bool(torch.equal(x, x2))}
+    ok &= within and row["eval_chunk"]["repeat_bit_identical"]
+
+    cfg = dataclasses.replace(base, augment=True)
+    s_pre = MinibatchSampler([tree], ["0"], cfg, seed=5)
+    s_sync = MinibatchSampler([tree], ["0"], cfg, seed=5)
+    got = []
+    with DeviceDecodePrefetcher(s_pre, size=2, device=dev) as pre:
+        for _ in range(4):
+            mb = next(pre)
+            torch.cuda._sleep(50_000_000)          # ~30 ms of the consumer's stream
+            got.append((mb.x.clone(), mb.uv.clone()))
+            del mb
+    want = []
+    for _ in range(4):
+        raw = s_sync.sample_raw()
+        uv = np.repeat(raw.uv, 2 * raw.patchx * raw.patchy, axis=0)
+        want.append((decode(staged(raw), cfg), uv))
+    row["prefetcher_bit_identical"] = all(
+        torch.equal(g, w) and np.array_equal(gu.cpu().numpy(), wu)
+        for (g, gu), (w, wu) in zip(got, want))
+    ok &= row["prefetcher_bit_identical"]
+
+    timing = {}
+    for augment in (False, True):
+        cfg = dataclasses.replace(base, augment=augment)
+        s = MinibatchSampler([tree], ["0"], cfg, seed=1)
+        sample_ms, raw_ms = host_ms(s.sample), host_ms(s.sample_raw)
+        mb, raw = s.sample(), s.sample_raw()
+        t = staged(raw)
+        host_bytes = mb.x.nbytes + mb.uv.nbytes
+        ppb = raw.patchx * raw.patchy * (2 if augment else 1)
+        raw_bytes = (raw.vis.nbytes + raw.scales.nbytes + raw.flip_flags.nbytes
+                     + np.repeat(raw.uv, ppb, axis=0).nbytes)
+        timing[f"augment_{augment}"] = {
+            "host_ms_sample": sample_ms, "host_ms_sample_raw": raw_ms,
+            "device_ms_decode": time_ms(lambda: decode(t, cfg)),
+            "device_ms_decode_queued": queued_us(lambda: decode(t, cfg), calls=20) / 1e3,
+            "host_decode_copy_mb": host_bytes / 1e6,
+            "device_decode_copy_mb": raw_bytes / 1e6,
+            "int8_mb": raw.vis.nbytes / 1e6, "scales_kb": raw.scales.nbytes / 1e3,
+            "copy_ratio": host_bytes / raw_bytes}
+    row["timing"] = timing
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the decode on the card disagrees: {row}")
+    return row
+
+
+# ---------------------------------------------------------------- phases 5 to 8
+
+def flagship_config(tmpdir: str, name: str = "full_khm", compute_dtype: str | None = None,
+                    device_decode: bool | None = None):
     """Preset ``name`` at full width through the kernels, 3 minibatches x 10 ADMM
-    iterations (``compute_dtype`` replaces the preset's where it is given)."""
+    iterations (``compute_dtype`` replaces the preset's where it is given), decoding on
+    the card unless ``device_decode=False``."""
     import dataclasses
 
     from lshm_tpu_torch.config import preset
@@ -618,6 +775,7 @@ def flagship_config(tmpdir: str, name: str = "full_khm", compute_dtype: str | No
     cfg = preset(name)
     return dataclasses.replace(
         cfg,
+        data=dataclasses.replace(cfg.data, device_decode=device_decode),
         model=dataclasses.replace(cfg.model, khm_backend="pallas", pallas_head=True,
                                   compute_dtype=compute_dtype or cfg.model.compute_dtype),
         train=dataclasses.replace(cfg.train, admm_iters=10, iters_per_epoch=3,
@@ -626,7 +784,9 @@ def flagship_config(tmpdir: str, name: str = "full_khm", compute_dtype: str | No
 
 
 def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
-                  phase: str = "trainer") -> dict:
+                  phase: str = "trainer", device_decode: bool | None = None):
+    """The Trainer on preset ``name`` (``flagship_config``); returns the launch counts
+    and the logger's history."""
     import math
 
     from lshm_tpu_torch.data import MinibatchSampler
@@ -634,10 +794,13 @@ def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
     from lshm_tpu_torch.train import Trainer
     from lshm_tpu_torch.utils import MetricLogger
 
-    cfg = flagship_config(tmpdir, name)
+    cfg = flagship_config(tmpdir, name, device_decode=device_decode)
     sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
     logger = MetricLogger(echo=False)
     trainer = Trainer(cfg, logger=logger)           # device=None: the card
+    sources = []                                    # the prefetcher Trainer.run picked
+    pick = trainer._source
+    trainer._source = lambda s: sources.append(pick(s)) or sources[-1]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -652,7 +815,8 @@ def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
     nadmm = cfg.train.admm_iters
     losses = {k: v for k, v in summary.items() if k != "t"}
     row = {"phase": phase, "preset": name, "compute_dtype": cfg.model.compute_dtype,
-           "patches": patches,
+           "decode": "host" if device_decode is False else "device",
+           "prefetcher": type(sources[0]).__name__, "patches": patches,
            "admm_iters": nadmm, "minibatches": len(hist), "losses": losses,
            "ms_per_admm_iter": steady_s / nadmm * 1e3,
            "patches_per_s": patches * nadmm / steady_s,
@@ -662,12 +826,38 @@ def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
     emit(row)
     if len(hist) != 3 or patches != 420:
         raise AssertionError(f"expected 3 minibatches of 420 patches: {row}")
+    want = "PrefetchIterator" if device_decode is False else "DeviceDecodePrefetcher"
+    if row["prefetcher"] != want:
+        raise AssertionError(f"the trainer decoded through {row['prefetcher']}, not {want}")
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite losses: {losses}")
     missing = [k for k in path if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    return counts
+    return counts, hist
+
+
+def trainer_decodes_phase(tree, tmpdir: str) -> dict:
+    """The float32 trainer run twice, decoding on the card (the default) and on the host
+    (data.device_decode=False): K1-K4 launch 30, 30, 60 and 30 times in each, and the
+    first minibatch's per-term losses agree within JAX's 5e-3 relative gate between the
+    two pipelines (tests/test_device_decode.py:176).  Returns the device decode's
+    counts."""
+    runs = {}
+    for decode, dd, phase in (("device", None, "trainer"),
+                              ("host", False, "trainer_host_decode")):
+        counts, hist = trainer_phase(tree, tmpdir, phase=phase, device_decode=dd)
+        expect_launches(counts, {"khm_fwd": 30, "khm_bwd": 30, "head_fwd": 60,
+                                 "head_bwd": 30}, f"{decode}-decode trainer")
+        runs[decode] = (counts, hist[0])
+    dev, host = runs["device"][1], runs["host"][1]
+    gap = {k: abs(dev[k] - host[k]) / abs(host[k]) for k in host
+           if k not in ("epoch", "iter", "t", "patches") and host[k] != 0.0}
+    emit({"phase": "trainer_decodes", "first_minibatch_rel_gap": gap,
+          "gate": 5e-3, "device_decode": dev, "host_decode": host})
+    if max(gap.values()) > 5e-3:
+        raise AssertionError(f"the two decodes' first minibatch disagree: {gap}")
+    return runs["device"][0]
 
 
 def expect_launches(counts: dict, expected: dict, what: str) -> None:
@@ -677,7 +867,7 @@ def expect_launches(counts: dict, expected: dict, what: str) -> None:
 
 def trainer_bf16_phase(tree, tmpdir: str) -> dict:
     """The Adam trainer run of preset full_khm_bf16, then ``bf16_first_iteration``."""
-    counts = trainer_phase(tree, tmpdir, "full_khm_bf16", BF16_PATH, "trainer_bf16")
+    counts, _ = trainer_phase(tree, tmpdir, "full_khm_bf16", BF16_PATH, "trainer_bf16")
     expect_launches(counts, {"khm_fwd": 30, "khm_bwd": 30, "head_fwd_bf16": 60,
                              "head_bwd_bf16": 30, "head_fwd": 0, "head_bwd": 0},
                     "bf16 trainer")
@@ -722,7 +912,8 @@ def trainer_fourier_phase(tree, tmpdir: str) -> dict:
     data; the Fourier AE has no fused head).  Then one minibatch through the kernels
     and through the plain path, and the first ADMM iteration in bfloat16_full against
     float32."""
-    counts = trainer_phase(tree, tmpdir, "fourier_cascade", ADAM_PATH, "trainer_fourier")
+    counts, _ = trainer_phase(tree, tmpdir, "fourier_cascade", ADAM_PATH,
+                              "trainer_fourier")
     expect_launches(counts, {"khm_fwd": 30, "khm_bwd": 30, "head_fwd": 60, "head_bwd": 30,
                              "head_dx": 0, "head_dx_bf16": 0}, "Fourier trainer")
     agree_phase(tree, tmpdir, "fourier_cascade", "agree_fourier")
@@ -770,7 +961,7 @@ def agree_phase(tree, tmpdir: str, name: str = "full_khm", phase: str = "agree")
         raise AssertionError("kernel path and plain path disagree")
 
 
-# --------------------------------------------------------------------- phases 8, 9
+# -------------------------------------------------------------------- phases 9, 10
 
 def head_input_grad_phase(dev) -> dict:
     """enc_head with a CUDA x that needs its gradient, backward through EncHead, in
@@ -919,7 +1110,7 @@ def conv0_probe_phase(dev) -> tuple[dict, list[dict]]:
     return counts, rows
 
 
-# ------------------------------------------------------------------- phases 10, 11
+# ------------------------------------------------------------------- phases 11, 12
 
 def lbfgs_config(checkpoint_dir: str = "", compute_dtype: str | None = None):
     """preset full_khm_lbfgs (as published, bfloat16 activations, unless
@@ -1135,7 +1326,7 @@ def agree_lbfgs_phase(dev, tree) -> None:
         raise AssertionError("the L-BFGS closure disagrees between kernels and plain path")
 
 
-# ------------------------------------------------------------------ phases 12 to 14
+# ------------------------------------------------------------------ phases 13 to 16
 
 def _state_distance(a: dict, b: dict) -> float:
     """Largest relative max-abs distance over the tensors of two state dicts."""
@@ -1243,19 +1434,23 @@ def eval_phase(tree, ckpt: str):
     """The clustering evaluation of a SAP at full width from a checkpoint: a fresh
     Trainer loads it in float32 and in bfloat16_full, through the kernels and with
     pallas_head=False (the same weights), and runs baseline_distance_matrix over every
-    baseline, chunks of 8 (K3 once a chunk; never on the plain path); then the serial
-    path (decode_lookahead=0) against the pipelined one and evaluate_sap without t-SNE.
-    float32: latents within 1e-5 and X within 1e-4 of the plain path, the same soft
-    assignment.  Returns the float32 kernel-path model."""
+    baseline, chunks of 8 (K3 once a chunk; never on the plain path), decoding on the
+    card (the default) and, through the kernels, on the host (device_decode=False);
+    then the serial path (decode_lookahead=0) against the pipelined one and
+    evaluate_sap without t-SNE.  float32: latents within 1e-5 and X within 1e-4 of the
+    plain path and of the host decode, the same soft assignment.  Returns the float32
+    kernel-path model and each dtype's row."""
     import dataclasses
     import math
 
     import numpy as np
 
-    from lshm_tpu_torch.data import (patch_grid_shape, read_baselines_patches_batch,
+    from lshm_tpu_torch.data import (device_decode_patchify, patch_grid_shape,
+                                     read_baselines_patches_batch, read_baselines_raw_batch,
                                      read_metadata)
     from lshm_tpu_torch.eval import baseline_distance_matrix, evaluate_sap
     from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.tools.measure import time_ms
     from lshm_tpu_torch.train import Trainer
 
     nbase, ntime, nfreq, _, _ = read_metadata(tree, "0")
@@ -1274,7 +1469,7 @@ def eval_phase(tree, ckpt: str):
         return t.model.eval()
 
     def timed_matrix(model, **kw):
-        baseline_distance_matrix(model, tree, "0", baseline_ids=range(bpb))  # warm-up
+        baseline_distance_matrix(model, tree, "0", baseline_ids=range(bpb), **kw)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -1290,8 +1485,12 @@ def eval_phase(tree, ckpt: str):
             model = loaded(dtype, path == "kernels")
             X, lat, wall, counts, peak = timed_matrix(model)
             out[path] = dict(X=X, lat=lat, wall=wall, counts=counts, peak=peak)
-            if path == "kernels" and dtype == "float32":
-                model_f32 = model
+            if path == "kernels":
+                kernel_model = model
+        X, lat, wall, counts, peak = timed_matrix(kernel_model, device_decode=False)
+        h = out["host_decode"] = dict(X=X, lat=lat, wall=wall, counts=counts, peak=peak)
+        if dtype == "float32":
+            model_f32 = kernel_model
         k, p = out["kernels"], out["plain"]
         row = {"phase": "eval", "compute_dtype": dtype, "baselines": nbase,
                "patches": patches, "chunks": nchunks, "baselines_per_batch": bpb,
@@ -1306,12 +1505,27 @@ def eval_phase(tree, ckpt: str):
                "X_rel_err": rel_err(torch.from_numpy(k["X"]), torch.from_numpy(p["X"])),
                "soft_assign_equal_share": float(np.mean(
                    np.argmin(k["X"], 0) == np.argmin(p["X"], 0))),
-               "finite": bool(np.isfinite(k["X"]).all() and np.isfinite(k["lat"]).all())}
+               "finite": bool(np.isfinite(k["X"]).all() and np.isfinite(k["lat"]).all()),
+               "host_decode": {
+                   "wall_s": h["wall"], "patches_per_s": patches / h["wall"],
+                   "baselines_per_s": nbase / h["wall"], "peak_mem_gb": h["peak"],
+                   "k3_launches": h["counts"][counter],
+                   "latents_rel_err": rel_err(torch.from_numpy(h["lat"]),
+                                              torch.from_numpy(k["lat"])),
+                   "X_rel_err": rel_err(torch.from_numpy(h["X"]), torch.from_numpy(k["X"])),
+                   "soft_assign_equal_share": float(np.mean(
+                       np.argmin(k["X"], 0) == np.argmin(h["X"], 0)))}}
         emit(row)
         runs[dtype] = row
-        if row["k3_launches"] != nchunks or row["plain_k3_launches"] != 0:
-            raise AssertionError(f"K3 launches {row['k3_launches']} on the kernel path "
+        hd = row["host_decode"]
+        if (row["k3_launches"] != nchunks or hd["k3_launches"] != nchunks
+                or row["plain_k3_launches"] != 0):
+            raise AssertionError(f"K3 launches {row['k3_launches']} (device decode), "
+                                 f"{hd['k3_launches']} (host decode) on the kernel path "
                                  f"({nchunks} chunks), {row['plain_k3_launches']} plain")
+        if dtype == "float32" and (hd["latents_rel_err"] > 1e-5 or hd["X_rel_err"] > 1e-4
+                                   or hd["soft_assign_equal_share"] != 1.0):
+            raise AssertionError(f"float32 eval: the two decodes disagree: {hd}")
         if not row["finite"] or k["X"].shape != (10, nbase):
             raise AssertionError(f"eval output malformed: {k['X'].shape}")
         if dtype == "float32" and (row["latents_rel_err"] > 1e-5 or row["X_rel_err"] > 1e-4
@@ -1329,6 +1543,13 @@ def eval_phase(tree, ckpt: str):
         read_baselines_patches_batch(tree, "0", list(range(i, min(nbase, i + bpb))),
                                      uvdist=True)
     decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(0, nbase, bpb):      # the raw reads of the device decode
+        read_baselines_raw_batch(tree, "0", list(range(i, min(nbase, i + bpb))),
+                                 uvdist=True)
+    raw_read_s = time.perf_counter() - t0
+    vis, scales = (torch.from_numpy(a).to(next(model_f32.parameters()).device)
+                   for a in read_baselines_raw_batch(tree, "0", list(range(bpb))))
     _, _, x, uv = read_baselines_patches_batch(tree, "0", list(range(bpb)), uvdist=True)
     dev = next(model_f32.parameters()).device
     x, uv = torch.from_numpy(x).to(dev), torch.from_numpy(uv).to(dev)
@@ -1341,8 +1562,10 @@ def eval_phase(tree, ckpt: str):
     res = evaluate_sap(model_f32, tree, "0", run_tsne=False, out_dir=None)
     sap_s = time.perf_counter() - t0
     X_demeaned = X_pipe - X_pipe.mean(axis=1, keepdims=True)
-    row = {"phase": "eval_pipeline", "serial_s": serial_wall, "pipelined_s": pipe_wall,
-           "host_decode_s": decode_s, "forward_ms_per_chunk": host_ms(forward),
+    row = {"phase": "eval_pipeline", "decode": "device", "serial_s": serial_wall,
+           "pipelined_s": pipe_wall, "host_decode_s": decode_s, "raw_read_s": raw_read_s,
+           "device_decode_ms_per_chunk": time_ms(lambda: device_decode_patchify(vis, scales)),
+           "forward_ms_per_chunk": host_ms(forward),
            "patches_per_chunk": int(x.shape[0]),
            "serial_vs_pipelined": {
                "bit_identical": bool(np.array_equal(X_ser, X_pipe)
@@ -1420,6 +1643,125 @@ def export_phase(model, tree) -> dict:
     return row
 
 
+# the kernels of the float32 Adam path (K1-K4) by the names a profiler's trace gives them
+TRACE_NAMES = {"khm_fwd": "khm_fwd_cluster_kernel", "khm_bwd": "khm_bwd_cluster_kernel",
+               "head_fwd": "head_fwd_tc_kernel", "head_bwd": "head_bwd_f32_tc_kernel"}
+
+
+def cli_phase(tree, tmpdir: str) -> dict:
+    """``lshm_tpu_torch.cli.main`` in this process, on the card, at full width (preset
+    full_khm, 2 minibatches x 10 ADMM iterations an epoch): ``train`` one epoch with a
+    checkpoint, ``--log-jsonl`` and ``--profile-dir``; ``train --resume`` to 2 epochs,
+    which trains the second only; ``export --ckpt`` with a symbolic batch.  The JSONL
+    holds a record per minibatch with JAX's keys, the trace names K1-K4, K1-K4 launch
+    20, 20, 40 and 20 times an epoch, and the exported call at batch 96 lies within 1e-6
+    of the model that Trainer.load restores from the checkpoint, one K3 launch a call.
+    The card's machine has no h5py, so for the phase ``scan_files`` in
+    ``lshm_tpu_torch.train.trainer`` (where Trainer.run looks it up) returns the
+    in-memory extract; it is restored afterwards.  ``eval`` and ``demo`` need sklearn
+    and matplotlib, which that machine lacks: the CPU tests cover them."""
+    import json
+
+    from lshm_tpu_torch import cli
+    from lshm_tpu_torch.config import preset
+    from lshm_tpu_torch.data import read_baselines_patches_batch
+    from lshm_tpu_torch.eval import load_exported
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import Trainer
+    from lshm_tpu_torch.train import trainer as trainer_mod
+
+    if os.environ.get("LSHM_PLATFORM"):
+        raise AssertionError("the cli phase runs the CLI on the card: unset LSHM_PLATFORM")
+    ckpt, prof, blob = (os.path.join(tmpdir, n) for n in ("ckpt", "profile", "fwd.pt2"))
+    logs = {n: os.path.join(tmpdir, f"{n}.jsonl") for n in ("train", "resume")}
+    common = ["train", "--data-dir", "in-memory", "--preset", "full_khm", "--quiet",
+              "--set", "train.iters_per_epoch=2", "--set", "train.admm_iters=10",
+              "--set", f"train.checkpoint_dir={ckpt}"]
+    argvs = {"train": [*common, "--set", "train.num_epochs=1",
+                       "--log-jsonl", logs["train"], "--profile-dir", prof],
+             "resume": [*common, "--set", "train.num_epochs=2", "--resume",
+                        "--log-jsonl", logs["resume"]]}
+    per_epoch = {"khm_fwd": 20, "khm_bwd": 20, "head_fwd": 40, "head_bwd": 20}
+    row = {"phase": "cli", "preset": "full_khm", "minibatches_per_epoch": 2,
+           "admm_iters": 10,
+           "scan_files": "replaced in lshm_tpu_torch.train.trainer for the phase "
+                         "(the in-memory extract), restored after",
+           "skipped": {"eval": "needs sklearn and matplotlib (CPU tests)",
+                       "demo": "needs matplotlib (CPU tests)"}}
+    real_scan = trainer_mod.scan_files
+    trainer_mod.scan_files = lambda *a, **k: ([tree], ["0"])
+    try:
+        for name, argv in argvs.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            with open(logs[name]) as f:
+                recs = [json.loads(line) for line in f]
+            row[name] = {"s": time.perf_counter() - t0,
+                         "launches": {k: launch_counts()[k] for k in ADAM_PATH},
+                         "records": [[r["epoch"], r["iter"]] for r in recs],
+                         "record_keys": sorted(recs[0]) if recs else [],
+                         "patches": [r.get("patches") for r in recs]}
+    finally:
+        trainer_mod.scan_files = real_scan
+    row["scan_files_restored"] = trainer_mod.scan_files is real_scan
+
+    trace = os.path.join(prof, "trace_epoch_0.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    row["profile"] = {"file": os.path.basename(trace), "mb": os.path.getsize(trace) / 1e6,
+                      "kernel_events": len(kernels),
+                      "named": {k: sum(n in name for name in kernels)
+                                for k, n in TRACE_NAMES.items()}}
+
+    t0 = time.perf_counter()
+    cli.main(["export", "--ckpt", ckpt, "--out", blob])
+    export_s = time.perf_counter() - t0
+    with open(blob, "rb") as f:
+        fn = load_exported(f.read())
+    t = Trainer(preset("full_khm"))                # the card
+    t.load(ckpt)
+    model = t.model.eval()
+    _, _, patches, uv = read_baselines_patches_batch(tree, "0", [0, 1, 2], uvdist=True)
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(patches[:96]).to(dev)
+    u = torch.from_numpy(uv[:96]).to(dev)
+    fn(x, u)                                       # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    got = fn(x, u)
+    torch.cuda.synchronize()
+    k3 = launch_counts()["head_fwd"]
+    with torch.inference_mode():
+        out = model(x, u)
+    errs = [rel_err(g, w) for g, w in zip(got[:2], (out.xrecon, out.Mu))]
+    row["export"] = {"s": export_s, "blob_mb": os.path.getsize(blob) / 1e6,
+                     "k3_launches": k3, "rel_err": max(errs),
+                     "shapes": [list(g.shape) for g in got]}
+    emit(row)
+
+    keys = {"epoch", "iter", "t", "patches", "loss0", "loss1", "loss2", "loss3", "kdist",
+            "aug", "sim", "rica", "loss"}
+    bad = []
+    for name, epoch in (("train", 0), ("resume", 1)):
+        r = row[name]
+        if r["launches"] != per_epoch:
+            bad.append(f"{name} launches {r['launches']}, expected {per_epoch}")
+        if r["records"] != [[epoch, 0], [epoch, 1]] or set(r["record_keys"]) != keys:
+            bad.append(f"{name} JSONL records {r['records']} with keys {r['record_keys']}")
+    if not row["scan_files_restored"]:
+        bad.append("scan_files not restored")
+    if min(row["profile"]["named"].values()) == 0:
+        bad.append(f"the trace lacks a kernel of K1-K4: {row['profile']['named']}")
+    if k3 != 1 or max(errs) > 1e-6 or row["export"]["shapes"][2] != [96, 10]:
+        bad.append(f"the exported forward: {row['export']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1461,8 +1803,9 @@ def main() -> int:
     tree = timed("data", lambda: synth_extract(nstations=5, ntime=384, nfreq=512, seed=0))
     emit({"phase": "data", "baselines": int(tree["measurement"]["saps"]["0"]
                                             ["visibilities"].shape[0])})
+    timed("device_decode", device_decode_phase, dev, tree)
     def trainer_and_agree(tmpdir):
-        counts = trainer_phase(tree, tmpdir)
+        counts = trainer_decodes_phase(tree, tmpdir)
         agree_phase(tree, tmpdir)
         return counts
 
@@ -1476,7 +1819,7 @@ def main() -> int:
     timed("agree_lbfgs", agree_lbfgs_phase, dev, tree)
 
     def from_checkpoint(tmpdir):
-        """Train, cut and resume (phase 12), then evaluate (13) and export (14) the
+        """Train, cut and resume (phase 13), then evaluate (14) and export (15) the
         resumed run's final checkpoint."""
         ckpt = timed("resume", resume_phase, tree, tmpdir)
         eval_tree = timed("eval_data", lambda: synth_extract(
@@ -1485,6 +1828,7 @@ def main() -> int:
         return evals, timed("export", export_phase, model, eval_tree)
 
     evals, export = in_tmpdir(from_checkpoint)
+    cli_row = timed("cli", in_tmpdir, lambda d: cli_phase(tree, d))
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2
@@ -1503,11 +1847,16 @@ def main() -> int:
         k["launches_fourier"] = fourier[counter]
         if counter in lbfgs:
             k["launches_lbfgs"] = lbfgs[counter]
+        if path == "trainer":         # K1-K4 through the CLI: train, then --resume
+            k["launches_cli"] = {n: cli_row[n]["launches"][counter]
+                                 for n in ("train", "resume")}
         if counter in ("head_fwd", "head_fwd_bf16"):   # K3: per chunk, per exported call
-            k["launches_eval"] = evals["float32" if counter == "head_fwd"
-                                       else "bfloat16_full"]["k3_launches"]
+            ev = evals["float32" if counter == "head_fwd" else "bfloat16_full"]
+            k["launches_eval"] = {"device_decode": ev["k3_launches"],
+                                  "host_decode": ev["host_decode"]["k3_launches"]}
         if counter == "head_fwd":
             k["launches_export"] = [export[f"batch_{n}"]["k3_launches"] for n in (35, 96)]
+            k["launches_cli_export"] = cli_row["export"]["k3_launches"]
         k["status"] = "ported, held against its plain version"
     emit({"kernels": kernels, "still_to_port": []})
     print(card(), flush=True)

@@ -1,0 +1,307 @@
+"""Command-line interface of the port (port of ``lshm_tpu/cli.py``): the JAX package's
+subcommands, flags, defaults and printed lines over ``lshm_tpu_torch``.
+
+    python -m lshm_tpu_torch.cli synth --out data/
+    python -m lshm_tpu_torch.cli train --data-dir data/ --preset full_khm \\
+           --set train.num_epochs=2 --set data.batch_size=8
+    python -m lshm_tpu_torch.cli eval --data-dir data/ --ckpt checkpoints/ --out results/
+    python -m lshm_tpu_torch.cli import-torch --net net.model --net-t netT.model \\
+           --net-f netF.model --khm khm.model --out checkpoints/
+    python -m lshm_tpu_torch.cli export --ckpt checkpoints/ --out lshm_forward.pt2
+
+Training, evaluation and export run on the card; ``LSHM_PLATFORM=cpu`` runs them on the
+CPU instead (any other value is an error).  ``rica``, ``graph``, ``bench`` and the
+multi-host flags keep JAX's flags and exit non-zero naming the ROADMAP item that ports
+them.  Every import of torch and of the port's modules happens inside a command, so
+``--help`` loads neither.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+PRESETS = ["ae2d_adam", "fourier_cascade", "full_khm", "full_khm_bf16", "full_khm_lbfgs"]
+
+
+def _add_set(p):
+    p.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VAL",
+        help="config override, e.g. data.batch_size=4 or optim.optimizer=lbfgs",
+    )
+
+
+def _device() -> str | None:
+    """``LSHM_PLATFORM``: unset means the card (the entry points raise without one),
+    ``cpu`` the CPU."""
+    plat = os.environ.get("LSHM_PLATFORM")
+    if plat is None:
+        return None
+    if plat.lower() == "cpu":
+        return "cpu"
+    sys.exit(f"error: LSHM_PLATFORM={plat!r}: lshm_tpu_torch runs on the card "
+             "(LSHM_PLATFORM unset) or on the CPU (LSHM_PLATFORM=cpu)")
+
+
+def _not_ported(what: str, item: str):
+    def refuse(args):
+        sys.exit(f"error: {what} is not ported to lshm_tpu_torch yet (ROADMAP {item})")
+
+    return refuse
+
+
+def cmd_synth(args):
+    from lshm_tpu_torch.data.synthetic import write_synthetic_h5
+
+    path = write_synthetic_h5(
+        f"{args.out}/L000001.MS_extract.h5",
+        nstations=args.nstations, ntime=args.ntime, nfreq=args.nfreq, seed=args.seed,
+    )
+    print(f"wrote {path}")
+
+
+def _build_config(args):
+    import dataclasses
+
+    from lshm_tpu_torch.config import _apply_overrides, check_supported, preset
+
+    cfg = preset(args.preset)
+    if getattr(args, "data_dir", None):
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, data_dir=args.data_dir))
+    try:
+        cfg = _apply_overrides(cfg, args.set)
+    except (AssertionError, ValueError, AttributeError) as e:
+        sys.exit(f"error: bad --set override: {e}")
+    try:
+        check_supported(cfg)
+    except (NotImplementedError, ValueError) as e:
+        sys.exit(f"error: {e}")
+    return cfg
+
+
+def _loaded_trainer(cfg, ckpt: str):
+    from lshm_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(cfg, device=_device())
+    try:
+        t.load(ckpt)
+    except FileNotFoundError as e:
+        sys.exit(f"error: no checkpoint found at {ckpt!r} ({e})")
+    return t
+
+
+def cmd_train(args):
+    if args.coordinator or args.num_processes or args.process_id is not None:
+        _not_ported("multi-host training (--coordinator, --num-processes, --process-id)",
+                    "A9, data parallelism")(args)
+    from lshm_tpu_torch.train.trainer import Trainer
+    from lshm_tpu_torch.utils.metrics import MetricLogger
+
+    cfg = _build_config(args)
+    logger = MetricLogger(jsonl_path=args.log_jsonl, echo=not args.quiet)
+    t = Trainer(cfg, device=_device(), logger=logger, profile_dir=args.profile_dir)
+    if args.resume:
+        t.load(cfg.train.checkpoint_dir)
+    summary = t.run()
+    print(f"done: {summary}")
+
+
+def cmd_eval(args):
+    import numpy as np
+
+    from lshm_tpu_torch.data import scan_files
+    from lshm_tpu_torch.eval import evaluate_sap
+
+    cfg = _build_config(args)
+    t = _loaded_trainer(cfg, args.ckpt)
+    files, saps = scan_files(cfg.data.data_dir, cfg.data.file_pattern)
+    if not files:
+        sys.exit(f"no valid H5 data under {cfg.data.data_dir!r}")
+    idx = args.sap_index % len(files)
+    res = evaluate_sap(
+        t.model, files[idx], saps[idx],
+        patch_size=cfg.data.patch_size, num_channels=cfg.data.num_channels,
+        order=cfg.model.khm_order, num_hard_clusters=args.hard_clusters,
+        out_dir=args.out, montages=args.montages, recon_panels=args.recon_panels,
+        device=t.device,
+    )
+    print(f"evaluated {res.X.shape[1]} baselines; "
+          f"soft cluster histogram: {np.bincount(res.soft_assign).tolist()}")
+
+
+def cmd_import_torch(args):
+    from lshm_tpu_torch.utils.checkpoint import save_checkpoint
+    from lshm_tpu_torch.utils.torch_import import (
+        load_reference_checkpoints,
+        load_reference_checkpoints_fourier,
+    )
+
+    if args.fnet:
+        if args.net_t or args.net_f:
+            sys.exit("error: pass either --fnet (legacy Fourier trio) or "
+                     "--net-t/--net-f (current pipeline), not both")
+        params = load_reference_checkpoints_fourier(args.net, args.fnet, args.khm,
+                                                    rica=not args.no_rica)
+    else:
+        if not (args.net_t and args.net_f):
+            sys.exit("error: --net-t and --net-f are required (or --fnet for the "
+                     "legacy Fourier trio)")
+        params = load_reference_checkpoints(args.net, args.net_t, args.net_f, args.khm,
+                                            rica=not args.no_rica)
+    save_checkpoint(args.out, {"params": params}, step=0,
+                    extras={"source": "torch-reference",
+                            "fourier_variant": bool(args.fnet)})
+    print(f"imported reference checkpoints -> {args.out}")
+
+
+def cmd_demo(args):
+    """A synthetic fringe spectrogram as a pseudocolor PNG (the reference's
+    display_colors.py demo; reference: src/display_colors.py:27-51)."""
+    import numpy as np
+
+    from lshm_tpu_torch.data.synthetic import synth_fringe
+    from lshm_tpu_torch.utils.rgb import channel_to_rgb, save_image_grid
+
+    rng = np.random.default_rng(args.seed)
+    uv_m = rng.uniform(-1e3, 1e3, size=2)
+    vis = synth_fringe(rng, args.ntime, args.nfreq, uv_m, noise=0.05)
+    # 4 channels: re/im of pols 0 and 3
+    x = np.stack(
+        [vis[:, :, 0, 0], vis[:, :, 0, 1], vis[:, :, 3, 0], vis[:, :, 3, 1]], axis=-1
+    )
+    save_image_grid([channel_to_rgb(x)], args.out)
+    print(f"wrote {args.out}")
+
+
+def cmd_export(args):
+    """The trained forward, parameters in the program, as a ``torch.export`` artifact
+    that a process importing ``lshm_tpu_torch`` loads and calls without model code."""
+    from lshm_tpu_torch.eval import export_forward
+
+    cfg = _build_config(args)
+    t = _loaded_trainer(cfg, args.ckpt)
+    blob = export_forward(
+        t.model,
+        patch_size=cfg.data.patch_size, num_channels=cfg.data.num_channels,
+        order=cfg.model.khm_order,
+        batch_size=args.batch if args.batch > 0 else None,
+    )
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    shape = args.batch if args.batch > 0 else "symbolic"
+    print(f"exported forward (batch={shape}) -> {args.out} ({len(blob)} bytes)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="lshm_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("synth", help="write a synthetic MS_extract.h5")
+    p.add_argument("--out", required=True)
+    p.add_argument("--nstations", type=int, default=6)
+    p.add_argument("--ntime", type=int, default=192)
+    p.add_argument("--nfreq", type=int, default=192)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser("train", help="train the cascaded AE + KHM model")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--preset", default="full_khm", choices=PRESETS)
+    p.add_argument("--log-jsonl", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the first epoch here")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host (not ported: ROADMAP A9)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host (not ported: ROADMAP A9)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-host (not ported: ROADMAP A9)")
+    _add_set(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("eval", help="clustering evaluation report")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--out", default="eval_out")
+    p.add_argument("--preset", default="full_khm")
+    p.add_argument("--sap-index", type=int, default=0)
+    p.add_argument("--hard-clusters", type=int, default=10)
+    p.add_argument("--montages", action="store_true")
+    p.add_argument("--recon-panels", action="store_true",
+                   help="per-baseline [x|xhat]/[x2|x3]/[xrec|xerr] pseudocolor panels")
+    _add_set(p)
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("import-torch", help="convert reference .model checkpoints")
+    p.add_argument("--net", required=True)
+    p.add_argument("--net-t", default=None)
+    p.add_argument("--net-f", default=None)
+    p.add_argument("--fnet", default=None,
+                   help="legacy Fourier-space AE (net/fnet/khm trio, Demo.ipynb)")
+    p.add_argument("--khm", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--no-rica", action="store_true")
+    p.set_defaults(fn=cmd_import_torch)
+
+    p = sub.add_parser("graph", help="train a GNN over learned latents "
+                                     "(not ported: ROADMAP A8)")
+    p.add_argument("kind", choices=["line", "station"])
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--preset", default="full_khm")
+    p.add_argument("--sap-index", type=int, default=0)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps-per-graph", type=int, default=20)
+    p.add_argument("--hidden", type=int, default=4)
+    p.add_argument("--plot", default=None, metavar="PNG")
+    _add_set(p)
+    p.set_defaults(fn=_not_ported("the graph subcommand", "A8, graphs"))
+
+    p = sub.add_parser("demo", help="render a synthetic fringe spectrogram PNG")
+    p.add_argument("--out", default="fringe.png")
+    p.add_argument("--ntime", type=int, default=128)
+    p.add_argument("--nfreq", type=int, default=256)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("rica", help="learn a RICA sparse dictionary over patches "
+                                    "(not ported: ROADMAP A7)")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--out", default="rica_out")
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--patch-size", type=int, default=128)
+    p.add_argument("--channels", type=int, default=4)
+    p.add_argument("--dict-size", type=int, default=256, metavar="M")
+    p.add_argument("--l1", type=float, default=0.1)
+    p.add_argument("--eta", type=float, default=0.1)
+    p.add_argument("--solver-iters", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=_not_ported("the rica subcommand", "A7, RICA"))
+
+    p = sub.add_parser("export", help="serialize the trained forward (torch.export)")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--out", default="lshm_forward.pt2")
+    p.add_argument("--preset", default="full_khm")
+    p.add_argument("--batch", type=int, default=0,
+                   help="static batch size; 0 = symbolic (any batch)")
+    _add_set(p)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("bench", help="run the headline benchmark "
+                                     "(not ported: ROADMAP C.8)")
+    p.set_defaults(fn=_not_ported("the bench subcommand",
+                                  "C.8, a benchmark of the port"))
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

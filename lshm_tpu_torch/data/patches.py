@@ -1,5 +1,5 @@
-"""Overlapping-patch extraction on the host (numpy; port of the numpy half of
-``lshm_tpu/data/patches.py``).
+"""Overlapping-patch extraction (port of ``lshm_tpu/data/patches.py``): ``patchify`` on
+the host (numpy) and ``patchify_torch`` on a tensor.
 
 Spectrograms are cut into ``patch_size x patch_size`` tiles with 50% overlap (stride =
 patch_size // 2; reference: src/lofar_tools.py:157-173), emitted baseline-major: all
@@ -9,6 +9,7 @@ patches of baseline ``b`` are contiguous, row-major over the (patchx, patchy) gr
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def patch_grid_shape(T: int, F: int, patch_size: int) -> tuple[int, int]:
@@ -31,4 +32,17 @@ def patchify(x: np.ndarray, patch_size: int) -> tuple[np.ndarray, tuple[int, int
         writeable=False,
     )
     out = np.ascontiguousarray(view).reshape(n * px * py, patch_size, patch_size, C)
+    return out, (px, py)
+
+
+def patchify_torch(x: torch.Tensor, patch_size: int) -> tuple[torch.Tensor, tuple[int, int]]:
+    """``patchify`` on a tensor, on any device (the counterpart of JAX's
+    ``patchify_jax``): pure data movement, bit-identical to it.  Two ``unfold``s give
+    [n, px, py, C, ps_t, ps_f] (each appends its window last), and the permute puts
+    time before frequency before channels."""
+    n, T, F, C = x.shape
+    stride = patch_size // 2
+    px, py = patch_grid_shape(T, F, patch_size)
+    grid = x.unfold(1, patch_size, stride).unfold(2, patch_size, stride)
+    out = grid.permute(0, 1, 2, 4, 5, 3).reshape(n * px * py, patch_size, patch_size, C)
     return out, (px, py)

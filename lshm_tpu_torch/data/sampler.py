@@ -1,9 +1,11 @@
-"""Training minibatch sampler (host side) with device prefetch (port of the host-decode
-path of ``lshm_tpu/data/sampler.py``; reference: src/lofar_tools.py:51-211).
+"""Training minibatch sampler (host side) with device prefetch (port of
+``lshm_tpu/data/sampler.py``; reference: src/lofar_tools.py:51-211).
 
 Randomly pick one (file, SAP), randomly pick ``batch_size`` baselines, decode int8 x scale
 into real channels, patchify baseline-major, clamp, z-normalise over the minibatch, and
 optionally double the batch with an augmentation transform interleaved per baseline.
+``sample()`` does all of it on the host; ``sample_raw()`` draws the same minibatch and
+leaves the decode to the device (``DeviceDecodePrefetcher``, ``data/device_decode.py``).
 The numpy rng stream (``default_rng([seed, process_index])``, ``reseed``, ``skip``) is
 the JAX sampler's, so both packages draw identical minibatches from the same seed.
 A file entry may be a path or an in-memory extract tree (``synth_extract``).
@@ -20,8 +22,10 @@ import numpy as np
 import torch
 
 from lshm_tpu_torch.config import DataConfig
-from lshm_tpu_torch.data.h5io import Source, compute_uv, read_baseline_channels, read_metadata
-from lshm_tpu_torch.data.patches import patchify
+from lshm_tpu_torch.data.device_decode import device_decode_train
+from lshm_tpu_torch.data.h5io import (Source, compute_uv, read_baseline_channels,
+                                      read_baseline_raw, read_metadata)
+from lshm_tpu_torch.data.patches import patch_grid_shape, patchify
 
 
 @dataclass
@@ -37,13 +41,34 @@ class Minibatch:
     num_baselines: int
 
 
+@dataclass
+class RawMinibatch:
+    """One minibatch before its decode: vis [B, T, F, npol, 2] int8, scales [B, F, npol]
+    float32, uv [B, 2] float32 per baseline (zeros without ``uvdist``), flip_flags
+    [B, 2] bool, each baseline's (time, freq) flips (all False without ``augment``)."""
+
+    vis: np.ndarray
+    scales: np.ndarray
+    uv: np.ndarray
+    flip_flags: np.ndarray
+    patchx: int
+    patchy: int
+    num_baselines: int
+
+
+def _flip_flags(rng: np.random.Generator) -> tuple[bool, bool]:
+    """``default_augment``'s two draws: (flip in time, flip in frequency)."""
+    return rng.random() < 0.5, rng.random() < 0.5
+
+
 def default_augment(rng: np.random.Generator, patches: np.ndarray) -> np.ndarray:
     """Random time/freq flips (the reference leaves its transform unspecified;
     reference: src/lofar_tools.py:196-203)."""
+    flip_t, flip_f = _flip_flags(rng)
     out = patches
-    if rng.random() < 0.5:
+    if flip_t:
         out = out[:, ::-1, :, :]
-    if rng.random() < 0.5:
+    if flip_f:
         out = out[:, :, ::-1, :]
     return np.ascontiguousarray(out)
 
@@ -119,13 +144,18 @@ class MinibatchSampler:
         """Deterministic per-epoch stream."""
         self.rng = np.random.default_rng([self._seed, self._process_index, epoch])
 
+    def _draw(self) -> tuple[int, np.ndarray]:
+        """The minibatch's first draws, shared by ``sample``, ``sample_raw`` and
+        ``skip``: the (file, SAP) index, then ``batch_size`` baseline ids."""
+        idx = int(self.rng.integers(0, len(self.file_list)))
+        return idx, self.rng.integers(0, self._meta[idx][0], self.cfg.batch_size)
+
     def skip(self, n: int) -> None:
         """Advance past ``n`` minibatches without reading data, by replaying exactly the
         rng draws ``sample()`` makes."""
         dummy = np.zeros((1, 1, 1, 1), dtype=np.float32)
         for _ in range(n):
-            idx = int(self.rng.integers(0, len(self.file_list)))
-            self.rng.integers(0, self._meta[idx][0], self.cfg.batch_size)
+            self._draw()
             if self.cfg.augment:
                 for _ in range(self.cfg.batch_size):
                     proxy = _SignatureRng(self.rng)
@@ -134,9 +164,8 @@ class MinibatchSampler:
 
     def sample(self) -> Minibatch:
         cfg = self.cfg
-        idx = int(self.rng.integers(0, len(self.file_list)))
+        idx, baseline_ids = self._draw()
         source, sap = self.file_list[idx], self.sap_list[idx]
-        baseline_ids = self.rng.integers(0, self._meta[idx][0], cfg.batch_size)
 
         x = read_baseline_channels(source, sap, baseline_ids, cfg.num_channels,
                                    cfg.patch_size)
@@ -167,27 +196,64 @@ class MinibatchSampler:
         return Minibatch(x=patches.astype(np.float32), uv=uv_full.astype(np.float32),
                          patchx=px, patchy=py, num_baselines=cfg.batch_size)
 
+    @property
+    def supports_device_decode(self) -> bool:
+        """The device decode reproduces only the default flip augmentation (its rng
+        decisions travel as flags); a custom ``augment_fn`` needs the host decode."""
+        return not self.cfg.augment or self.augment_fn is default_augment
+
+    def sample_raw(self) -> RawMinibatch:
+        """``sample()`` without the decode.  It makes exactly ``sample()``'s rng draws
+        (``_draw``, then, augmenting, ``default_augment``'s ``_flip_flags`` per
+        baseline), so ``skip()``, checkpoints and exact resume are interchangeable
+        between the host and the device decode."""
+        cfg = self.cfg
+        if not self.supports_device_decode:
+            raise RuntimeError(
+                "sample_raw: a custom augment_fn cannot be replayed on the device; use "
+                "the host decode (data.device_decode=False)")
+        idx, baseline_ids = self._draw()
+        source, sap = self.file_list[idx], self.sap_list[idx]
+        ntime, nfreq = self._meta[idx][1:3]
+        vis, scales = read_baseline_raw(source, sap, baseline_ids)
+        if cfg.uvdist:
+            uv = compute_uv(source, sap, baseline_ids)
+        else:
+            uv = np.zeros((cfg.batch_size, 2), dtype=np.float32)
+        flags = np.zeros((cfg.batch_size, 2), dtype=bool)
+        if cfg.augment:
+            for b in range(cfg.batch_size):
+                flags[b] = _flip_flags(self.rng)
+        px, py = patch_grid_shape(max(ntime, cfg.patch_size), max(nfreq, cfg.patch_size),
+                                  cfg.patch_size)
+        return RawMinibatch(vis=vis, scales=scales, uv=uv.astype(np.float32),
+                            flip_flags=flags, patchx=px, patchy=py,
+                            num_baselines=cfg.batch_size)
+
 
 class DeviceStaging:
     """Host arrays -> tensors on ``device``.  On a CUDA device ``put`` (from any thread)
     pins the arrays and copies them with ``non_blocking`` on a side stream, and ``take``
-    makes the consumer's current stream wait for that copy."""
+    makes the consumer's current stream wait for that copy (and for what ``put``'s
+    ``then`` queued after it on that stream)."""
 
     def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-    def put(self, *arrays: np.ndarray) -> tuple[list[torch.Tensor], Any]:
-        """The arrays as device tensors, and the event their copy records (None off
-        the card)."""
+    def put(self, *arrays: np.ndarray, then: Callable | None = None) -> tuple[Any, Any]:
+        """The arrays as device tensors, or ``then(*tensors)`` run on them on the same
+        stream, and the event recorded after both (None off the card)."""
         ts = [torch.from_numpy(a) for a in arrays]
         if self.stream is None:
-            return [t.to(self.device) for t in ts], None
+            ts = [t.to(self.device) for t in ts]
+            return (then(*ts) if then else ts), None
         with torch.cuda.stream(self.stream):
             ts = [t.pin_memory().to(self.device, non_blocking=True) for t in ts]
+            out = then(*ts) if then else ts
             ready = torch.cuda.Event()
             ready.record(self.stream)
-        return ts, ready
+        return out, ready
 
     def take(self, tensors, ready) -> None:
         """Order the current stream after the copy of ``tensors``."""
@@ -216,13 +282,17 @@ class PrefetchIterator:
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
+    def _item(self) -> tuple[Minibatch, Any]:
+        """The next minibatch on the device, and the event ``take`` waits for."""
+        mb = self._sampler.sample()
+        (x, uv), ready = self._staging.put(mb.x, mb.uv)
+        return Minibatch(x=x, uv=uv, patchx=mb.patchx, patchy=mb.patchy,
+                         num_baselines=mb.num_baselines), ready
+
     def _producer(self) -> None:
         while not self._stop.is_set():
             try:
-                mb = self._sampler.sample()
-                (x, uv), ready = self._staging.put(mb.x, mb.uv)
-                item = Minibatch(x=x, uv=uv, patchx=mb.patchx, patchy=mb.patchy,
-                                 num_baselines=mb.num_baselines)
+                item, ready = self._item()
             except Exception as e:    # surfaced in the consumer by __next__
                 self._err = e
                 self._stop.set()
@@ -262,3 +332,32 @@ class PrefetchIterator:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class DeviceDecodePrefetcher(PrefetchIterator):
+    """``PrefetchIterator`` that copies the raw int8 visibilities, scales and flip flags
+    (``sample_raw``) and decodes them on ``device`` (``device_decode_train``): the step
+    sees the same [N, ps, ps, C] minibatch, and the copy carries 5.8 times fewer bytes
+    at full width (11.6 with augmentation).  On a CUDA device the copy and the decode
+    run on the staging side stream, under ``no_grad`` (not ``inference_mode``: the step
+    saves its input for backward); the consumer's stream waits for the decode, and the
+    decoded ``x`` and ``uv``, allocated on the side stream, are marked as used by the
+    consumer's (``DeviceStaging.take``).  The raw tensors are read on the side stream
+    only.  A sampler with a custom ``augment_fn`` fails in ``sample_raw``, and the first
+    ``next`` raises it."""
+
+    def _decode(self, vis, scales, flags, uv):
+        cfg = self._sampler.cfg
+        with torch.no_grad():
+            x = device_decode_train(vis, scales, flags, num_channels=cfg.num_channels,
+                                    patch_size=cfg.patch_size, clamp=cfg.clamp,
+                                    normalize=cfg.normalize, augment=cfg.augment)
+        return x, uv
+
+    def _item(self) -> tuple[Minibatch, Any]:
+        raw = self._sampler.sample_raw()
+        ppb = raw.patchx * raw.patchy * (2 if self._sampler.cfg.augment else 1)
+        (x, uv), ready = self._staging.put(raw.vis, raw.scales, raw.flip_flags,
+                                           np.repeat(raw.uv, ppb, axis=0), then=self._decode)
+        return Minibatch(x=x, uv=uv, patchx=raw.patchx, patchy=raw.patchy,
+                         num_baselines=raw.num_baselines), ready

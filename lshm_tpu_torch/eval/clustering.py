@@ -5,10 +5,11 @@ src/evaluate_clustering.py:40-163).
 Baselines go through the cascade forward in chunks of ``baselines_per_batch`` on the
 card (K3, the fused encoder head, once per chunk), and the per-cluster mean
 ||Mu - m_k||^p reduces there too; only t-SNE and the agglomerative pass (sklearn) run
-on the host.  The host decode of the next chunks overlaps the device's forward
-(``decode_lookahead``).  sklearn, scipy, matplotlib and PIL are imported inside the
-functions that use them.  The model holds its weights, so the JAX functions'
-``params`` argument is gone; ``M`` is ``model.khm.M``.
+on the host.  By default each chunk's int8 visibilities are copied and decoded on the
+device (``data/device_decode.py``); the reads (or the host decode) of the next chunks
+overlap the device's forward (``decode_lookahead``).  sklearn, scipy, matplotlib and
+PIL are imported inside the functions that use them.  The model holds its weights, so
+the JAX functions' ``params`` argument is gone; ``M`` is ``model.khm.M``.
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from lshm_tpu_torch.data.device_decode import device_decode_patchify
 from lshm_tpu_torch.data.h5io import (
     Source,
     read_baseline_flat,
     read_baseline_patches,
     read_baselines_patches_batch,
+    read_baselines_raw_batch,
     read_metadata,
 )
 from lshm_tpu_torch.data.sampler import DeviceStaging
@@ -71,7 +74,7 @@ def baseline_distance_matrix(
     baselines_per_batch: int = 8,
     baseline_ids: Sequence[int] | None = None,
     decode_lookahead: int = 2,
-    device_decode: bool = False,
+    device_decode: bool = True,
     device: str | torch.device | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Returns (X [K, nbase] raw distance matrix, mean_latents [nbase, D]).
@@ -82,19 +85,17 @@ def baseline_distance_matrix(
     ``torch.inference_mode()``; the tail chunk is not padded (JAX pads it only to avoid
     a retrace).
 
-    The host decode and the device forward are pipelined: one background thread
-    decodes up to ``decode_lookahead`` chunks ahead and stages each in pinned memory
-    with a non-blocking copy, while the device runs the previous chunk's forward, and
-    each chunk's results are fetched one chunk late.  ``decode_lookahead=0`` is the
-    serial path, with the same results bit for bit.
+    The host work and the device forward are pipelined: one background thread reads
+    up to ``decode_lookahead`` chunks ahead and stages each in pinned memory with a
+    non-blocking copy, while the device runs the previous chunk's forward, and each
+    chunk's results are fetched one chunk late.  ``decode_lookahead=0`` is the serial
+    path, with the same results bit for bit.
 
-    ``device_decode=True`` (the JAX default: int8 visibilities decoded on the device)
-    is not ported yet and raises; the port's default is the host decode, JAX's
-    ``device_decode=False`` path."""
-    if device_decode:
-        raise NotImplementedError(
-            "device_decode=True: the device-side decode is not ported yet (ROADMAP "
-            "section A5, device decode); pass device_decode=False for the host decode")
+    ``device_decode=True`` (the default, as in JAX) reads each chunk's raw int8
+    visibilities, scales and uv, and the consumer's stream decodes them
+    (``device_decode_patchify``: clamp +-1e6, z-norm per baseline) before the forward.
+    ``False`` decodes on the host (``read_baselines_patches_batch``) and copies the
+    float32 patches."""
     device = resolve_device(device)
     _model_device(model, device)
     nbase = read_metadata(source, sap)[0]
@@ -108,18 +109,27 @@ def baseline_distance_matrix(
     cuda = device.type == "cuda"
 
     def decode(chunk):
-        # one open of the source per chunk serves the patches and uv of its baselines
-        _, _, patches, uv = read_baselines_patches_batch(
-            source, sap, chunk, patch_size, num_channels, uvdist=True)
-        return staging.put(patches, uv), patches.shape[0] // len(chunk)
+        # one open of the source per chunk serves the data and uv of its baselines
+        if device_decode:
+            arrays = read_baselines_raw_batch(source, sap, chunk, uvdist=True)
+        else:
+            arrays = read_baselines_patches_batch(source, sap, chunk, patch_size,
+                                                  num_channels, uvdist=True)[2:]
+        return staging.put(*arrays), len(chunk)
 
-    def dispatch(decoded):
-        """Queue the chunk's forward and the copy of its results to the host; returns
-        what ``fetch`` waits on."""
-        ((x, uv), ready), ppb = decoded
-        staging.take((x, uv), ready)
+    def dispatch(staged):
+        """Queue the chunk's decode (on the device), forward and the copy of its results
+        to the host; returns what ``fetch`` waits on."""
+        (tensors, ready), nb = staged
+        staging.take(tensors, ready)
         with torch.inference_mode():
-            dists, mls = _batched_features(model, x, uv, ppb, order)
+            if device_decode:
+                vis, scales, uv = tensors
+                x = device_decode_patchify(vis, scales, num_channels, patch_size)
+                uv = uv.repeat_interleave(x.shape[0] // nb, dim=0)
+            else:
+                x, uv = tensors
+            dists, mls = _batched_features(model, x, uv, x.shape[0] // nb, order)
             if not cuda:
                 return dists, mls, None
             dists, mls = dists.to("cpu", non_blocking=True), mls.to("cpu", non_blocking=True)

@@ -3,23 +3,26 @@ reference: src/kharmonic_lofar.py:115-222).
 
 Epochs x iterations x ADMM schedule, the published alpha/beta/gamma ramp with the
 Adam -> L-BFGS switch (``RampStage.optimizer``, else ``optim.optimizer``), alternating
-model groups, a prefetching input pipeline, metric logging, the one-step-delayed
-non-finite revert, and checkpoints with exact resume (``load``: parameters, optimizer
-state, step and the sampler position).  A switch of (optimizer kind, group) carries
-the parameters over and resets the optimizer state, as in JAX; the L-BFGS state
-persists across the minibatches of one (kind, group).  One device; ``Trainer(cfg)``
-runs on the card and raises when there is none.
+model groups, a prefetching input pipeline (decoding on the card by default, see
+``_source``), metric logging, an optional ``torch.profiler`` trace of the first epoch,
+the one-step-delayed non-finite revert, and checkpoints with exact resume (``load``:
+parameters, optimizer state, step and the sampler position).  A switch of (optimizer
+kind, group) carries the parameters over and resets the optimizer state, as in JAX; the
+L-BFGS state persists across the minibatches of one (kind, group).  One device;
+``Trainer(cfg)`` runs on the card and raises when there is none.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
 import numpy as np
 import torch
 
 from lshm_tpu_torch.config import Config, check_supported
-from lshm_tpu_torch.data import MinibatchSampler, PrefetchIterator, scan_files
+from lshm_tpu_torch.data import (DeviceDecodePrefetcher, MinibatchSampler,
+                                 PrefetchIterator, scan_files)
 from lshm_tpu_torch.device import resolve_device, use_exact_float32
 from lshm_tpu_torch.optim import lbfgs_init
 from lshm_tpu_torch.train.objective import LossWeights
@@ -37,16 +40,19 @@ from lshm_tpu_torch.utils.metrics import MetricLogger
 
 
 class Trainer:
-    """Stateful training loop.  ``device=None`` means the card."""
+    """Stateful training loop.  ``device=None`` means the card.  With ``profile_dir``,
+    the first epoch that ``run()`` executes is traced with ``torch.profiler`` (the host,
+    and the card on CUDA) into a Chrome trace ``trace_epoch_<epoch>.json`` there."""
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None,
-                 logger: MetricLogger | None = None):
+                 logger: MetricLogger | None = None, profile_dir: str | None = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_exact_float32()
         self.logger = logger or MetricLogger(echo=True)
+        self.profile_dir = profile_dir
         self.state: TrainState | None = None
         self._opt_kind: tuple[str, str] | None = None    # (optimizer kind, group)
         self._resume_epoch = 0       # where the next run() starts (set by load)
@@ -83,6 +89,27 @@ class Trainer:
         self.state.opt.load_state_dict(opt)
         self.state.step = step
 
+    def _source(self, sampler: MinibatchSampler):
+        """The prefetcher of one epoch, or None (``data.prefetch == 0``: the loop samples
+        itself).  ``data.device_decode``: None decodes on the device when it is CUDA and
+        the sampler can (``supports_device_decode``), True requires that the sampler
+        can, False decodes on the host."""
+        cfg = self.cfg.data
+        if cfg.prefetch <= 0:
+            if cfg.device_decode:
+                raise ValueError("data.device_decode=True requires data.prefetch > 0 "
+                                 "(the decode on the device runs in the prefetcher)")
+            return None
+        raw_ok = sampler.supports_device_decode
+        if cfg.device_decode and not raw_ok:
+            raise ValueError("data.device_decode=True needs the default augment "
+                             "transform (a custom augment_fn uses the host decode)")
+        use = cfg.device_decode
+        if use is None:
+            use = raw_ok and self.device.type == "cuda"
+        kind = DeviceDecodePrefetcher if use else PrefetchIterator
+        return kind(sampler, cfg.prefetch, self.device)
+
     def run(self, sampler: MinibatchSampler | None = None) -> dict:
         cfg = self.cfg
         if sampler is None:
@@ -108,8 +135,10 @@ class Trainer:
                             rho=cfg.loss.rho, rica_lambda=cfg.loss.rica_lambda)
             kind = stage.optimizer if stage is not None else cfg.optim.optimizer
             group = active_group(cfg.optim.group_schedule, epoch)
-            source = (PrefetchIterator(sampler, cfg.data.prefetch, self.device)
-                      if cfg.data.prefetch > 0 else None)
+            profiler = None
+            if self.profile_dir is not None and epoch == start_epoch:
+                profiler = self._start_profiler()
+            source = None
             pending = None   # (snapshot before the step, metrics, iteration, patches)
 
             def settle(pending):
@@ -124,6 +153,7 @@ class Trainer:
                     self.logger.log_step(epoch, pit, metrics, patches=patches)
 
             try:
+                source = self._source(sampler)
                 for it in range(first_iter, cfg.train.iters_per_epoch):
                     if source is not None:
                         mb = next(source)
@@ -156,6 +186,8 @@ class Trainer:
             finally:
                 if source is not None:
                     source.close()
+                if profiler is not None:
+                    self._stop_profiler(profiler, epoch)
             if cfg.train.save_every and (epoch + 1) % cfg.train.save_every == 0:
                 self.save(cfg.train.checkpoint_dir,
                           step=(epoch + 1) * cfg.train.iters_per_epoch, epoch=epoch + 1)
@@ -165,6 +197,24 @@ class Trainer:
                       step=cfg.train.num_epochs * cfg.train.iters_per_epoch,
                       epoch=cfg.train.num_epochs)
         return self.logger.summary()
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof, epoch: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)    # the epoch's kernels in the trace
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.profile_dir,
+                                              f"trace_epoch_{epoch}.json"))
 
     def save(self, ckpt_dir: str, step: int, epoch: int | None = None,
              iter_in_epoch: int = 0) -> None:

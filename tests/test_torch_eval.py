@@ -1,8 +1,9 @@
 """The port's clustering evaluation (``lshm_tpu_torch.eval``) and its readers against the
 JAX package's, on the ``synth_h5`` fixture (4 stations, 10 baselines, 4 patches each).
 
-JAX runs ``baseline_distance_matrix(..., device_decode=False)`` (its host-decode path,
-the one the port has) from the port's weights bridged with ``params.to_flax``: latents
+Both packages run ``baseline_distance_matrix(..., device_decode=False)`` (the host
+decode; ``tests/test_torch_device_decode.py`` holds the device decode, the default)
+from the port's weights bridged with ``params.to_flax``: latents
 within 1e-5 and X within 1e-4 (relative to the largest value), the same soft
 assignment.  Given JAX's distance matrix, the port's host stage gives the same labels,
 an embedding within 1e-6 and the files JAX writes."""
@@ -59,7 +60,8 @@ def jax_matrix(models, synth_h5):
 
 
 def _port_matrix(port, source, **kw):
-    kw = {"order": 4, "baselines_per_batch": 4, "device": "cpu", **kw}
+    kw = {"order": 4, "baselines_per_batch": 4, "device": "cpu", "device_decode": False,
+          **kw}
     return clustering.baseline_distance_matrix(port, source, "0", **kw)
 
 

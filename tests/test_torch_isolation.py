@@ -30,7 +30,27 @@ bad = [k for k, m in sys.modules.items() if m is not None and (
        or k.split(".")[0] in ("jax", "flax", "optax", "orbax", "sklearn", "matplotlib",
                               "PIL"))]
 assert not bad, bad
+for name in ("lshm_tpu_torch.cli", "lshm_tpu_torch.data.device_decode"):
+    assert name in sys.modules, name
 print("imported", len([k for k in sys.modules if k.startswith("lshm_tpu_torch")]))
+"""
+
+_CLI_HELP = """
+import sys
+sys.modules["jax"] = None          # any import of jax now raises
+from lshm_tpu_torch import cli
+for argv in (["--help"], *([c, "--help"] for c in (
+        "synth", "train", "eval", "import-torch", "graph", "demo", "rica", "export",
+        "bench"))):
+    try:
+        cli.main(argv)
+    except SystemExit as e:
+        assert e.code == 0, (argv, e.code)
+bad = [k for k, m in sys.modules.items() if m is not None and (
+       k == "lshm_tpu" or k.startswith("lshm_tpu.") or k.split(".")[0] in ("jax", "torch")
+       or k.startswith("lshm_tpu_torch.kernels"))]
+assert not bad, bad
+print("ok")
 """
 
 
@@ -39,6 +59,15 @@ def test_port_imports_without_jax_or_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.split()[-1]) >= 20
+
+
+def test_cli_help_imports_neither_jax_nor_torch():
+    """``--help`` of the CLI and of each subcommand imports no JAX, nothing of the JAX
+    package, no torch and no kernel: the commands import what they use."""
+    r = subprocess.run([sys.executable, "-c", _CLI_HELP], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -88,17 +117,24 @@ def test_evaluation_without_device_needs_a_card(monkeypatch):
 
 
 def test_unported_decoders_raise_by_name():
-    """The device-side decode (ROADMAP A5) and the native host decoder (A6) are not
-    ported: asking for either raises, never a silent host-decode fallback."""
-    from lshm_tpu_torch.data import read_baselines_patches_batch, synth_extract
-    from lshm_tpu_torch.eval import baseline_distance_matrix
+    """The native host decoder (ROADMAP A6) is not ported: asking for it raises, never a
+    silent numpy fallback.  The device-side decode (A5) is ported, and asking for it
+    where it cannot run raises too: without prefetch, or with a custom augment."""
+    from lshm_tpu_torch.data import (MinibatchSampler, read_baselines_patches_batch,
+                                     synth_extract)
 
     tree = synth_extract()
-    with pytest.raises(NotImplementedError, match="A5"):
-        baseline_distance_matrix(_eval_model(), tree, "0", device="cpu",
-                                 device_decode=True)
     with pytest.raises(NotImplementedError, match="A6"):
         read_baselines_patches_batch(tree, "0", [0], use_native=True)
+    cfg = _rep(_rep(tc.Config(), "data", device_decode=True, prefetch=0, batch_size=1),
+               "model", latent_dim=16, latent_dim_1d=8, num_clusters=4)
+    sampler = MinibatchSampler([tree], ["0"], cfg.data)
+    with pytest.raises(ValueError, match="prefetch"):
+        Trainer(cfg, device="cpu").run(sampler)
+    cfg = _rep(cfg, "data", prefetch=1, augment=True)
+    custom = MinibatchSampler([tree], ["0"], cfg.data, augment_fn=lambda rng, p: p)
+    with pytest.raises(ValueError, match="augment"):
+        Trainer(cfg, device="cpu").run(custom)
 
 
 def test_evaluation_refuses_a_model_on_another_device():
@@ -163,7 +199,6 @@ UNPORTED = {
     "model.packed_conv2d": lambda c: _rep(c, "model", packed_conv2d=1),
     "train.mesh_shape": lambda c: _rep(c, "train", mesh_shape=(4,)),
     "train.remat": lambda c: _rep(c, "train", remat=True),
-    "data.device_decode": lambda c: _rep(c, "data", device_decode=True),
 }
 
 
