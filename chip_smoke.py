@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device     card name and power limit, torch and CUDA versions, TF32 flags
-  2. build      compile the CUDA kernels from csrc/ (one nvcc per source, in parallel)
+  2. build      compile the CUDA kernels from csrc/ (one nvcc per source, in parallel),
+                then the native host decoder (native/patchio.cpp, the host's g++)
   3. parity     each kernel of K1-K5 against its plain PyTorch version at the main
                 path's shapes (K1/K2 at D = 256 and at the Fourier cascade's 288, and at
                 N = 2500, (5, 3, 128), a ragged D = 72, K = 21 and K = 200; relative max
@@ -42,9 +43,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 patches of 128 x 128 x 4, 10 ADMM iterations x 3 minibatches) on a
                 synthetic extract held in memory, with every kernel's launch count, run
                 twice: decoding on the card (the default, as every trainer phase below)
-                and on the host (data.device_decode=False); K1-K4 launch 30, 30, 60, 30
-                in each, and the first minibatch's per-term losses agree within JAX's
-                5e-3 relative gate
+                and on the host (data.device_decode=False; sample() through the native
+                decoder, "host_decoder": "native"); K1-K4 launch 30, 30, 60, 30 in each,
+                and the first minibatch's per-term losses agree within JAX's 5e-3
+                relative gate
   6. agree      one minibatch (2 ADMM iterations) through the kernels and through the
                 plain path from the same state: per-term metrics within 1e-4; and the
                 cascade forward on the card against the CPU on two patches
@@ -91,13 +93,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 (synthetic extract of 10 stations: 55 baselines x 35 patches, chunks of
                 8): baseline_distance_matrix in float32 and bfloat16_full, through the
                 kernels (K3 once a chunk) decoding on the card (the default) and on the
-                host (device_decode=False), and with pallas_head=False (never K3);
+                host (device_decode=False: the native decoder, one call a baseline), and
+                with pallas_head=False (never K3);
                 latents 1e-5 and X 1e-4 from the plain path and between the two decodes
                 in float32 with the same soft assignment (bf16: the distances and the
                 share of equal assignments printed); wall seconds, patches/s,
                 baselines/s, peak memory of each; the serial path (decode_lookahead=0)
                 against the pipelined one (seconds; the same 1e-5 / 1e-4, bit-identity
-                printed), the host decode alone, the raw reads alone, one chunk's
+                printed), the host decode alone (native and numpy), the raw reads alone,
+                one chunk's
                 device decode and forward; then evaluate_sap without t-SNE
   15. export    export_forward of that float32 model with a symbolic batch on the card
                 and load_exported of it, called at batch 35 and 96: the graph holds the
@@ -111,12 +115,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 model with one K3 launch (scan_files replaced by the in-memory extract
                 for the phase, restored after; eval and demo need sklearn and
                 matplotlib, which the card's machine lacks: the CPU tests cover them)
-Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15 and the CLI's train,
-resume and exported call) is driven with the launch counts set to 0 just before it and
-read just after.  Then a seconds line, the kernels table as one JSON line, the card's
-name and power limit, and {"ok": true, "device": {...}} as the last line.  Without a
-CUDA device it exits 2 before printing any result.  It imports nothing of JAX or of the
-JAX package.
+  17. native_decode   the native host decoder at full width: the default sampler takes it
+                on this machine; sample() native against numpy from twin samplers (420
+                patches, 840 with augment) within JAX's gate (rtol 1e-5, atol 1e-5), the
+                same rng state after, uv equal; read_baselines_patches_batch native
+                against numpy on 8 baselines of each extract; native repeats bit for bit;
+                host ms (median of 5) of sample() with each decoder, read_baseline_raw,
+                the numpy path's parts and an eval chunk; cores, OpenMP threads and the
+                OpenMP runtimes mapped into the process; where $CXX is not the path's
+                g++, that g++'s build too (timed, held to the default build)
+  18. rica      lshm_tpu_torch.cli.main(["rica", ...]) at its defaults on the card (10
+                minibatches x 8 baselines x 35 patches, A [65536, 256], M = 256, 10
+                solver iterations), each minibatch decoded by sample() through the
+                native decoder (scan_files in lshm_tpu_torch.data replaced by the
+                in-memory extract for the phase): first, on a learner of the same seed,
+                the first closure within 1e-5 / 2e-5 of float64 on the CPU and one fit
+                repeated (same func_evals, losses 1e-6); then the CLI's lines, finite
+                loss and |dA|, the atom PNG, no port kernel launched; ms per fit,
+                func_evals and host syncs per solve, sample() ms, peak memory
+Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15, the CLI's train,
+resume and exported call, and 18) is driven with the launch counts set to 0 just before
+it and read just after.  Then a seconds line, the kernels table as one JSON line, the
+card's name and power limit, and {"ok": true, "device": {...}} as the last line.
+Without a CUDA device it exits 2 before printing any result.  It imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -816,6 +838,7 @@ def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
     losses = {k: v for k, v in summary.items() if k != "t"}
     row = {"phase": phase, "preset": name, "compute_dtype": cfg.model.compute_dtype,
            "decode": "host" if device_decode is False else "device",
+           "host_decoder": "native" if sampler.use_native else "numpy",
            "prefetcher": type(sources[0]).__name__, "patches": patches,
            "admm_iters": nadmm, "minibatches": len(hist), "losses": losses,
            "ms_per_admm_iter": steady_s / nadmm * 1e3,
@@ -829,6 +852,8 @@ def trainer_phase(tree, tmpdir: str, name: str = "full_khm", path=ADAM_PATH,
     want = "PrefetchIterator" if device_decode is False else "DeviceDecodePrefetcher"
     if row["prefetcher"] != want:
         raise AssertionError(f"the trainer decoded through {row['prefetcher']}, not {want}")
+    if device_decode is False and row["host_decoder"] != "native":
+        raise AssertionError("the host decode did not take the native decoder")
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"non-finite losses: {losses}")
     missing = [k for k in path if counts[k] == 0]
@@ -1445,6 +1470,7 @@ def eval_phase(tree, ckpt: str):
 
     import numpy as np
 
+    from lshm_tpu_torch import native
     from lshm_tpu_torch.data import (device_decode_patchify, patch_grid_shape,
                                      read_baselines_patches_batch, read_baselines_raw_batch,
                                      read_metadata)
@@ -1510,6 +1536,7 @@ def eval_phase(tree, ckpt: str):
                    "wall_s": h["wall"], "patches_per_s": patches / h["wall"],
                    "baselines_per_s": nbase / h["wall"], "peak_mem_gb": h["peak"],
                    "k3_launches": h["counts"][counter],
+                   "host_decoder": "native" if native.available() else "numpy",
                    "latents_rel_err": rel_err(torch.from_numpy(h["lat"]),
                                               torch.from_numpy(k["lat"])),
                    "X_rel_err": rel_err(torch.from_numpy(h["X"]), torch.from_numpy(k["X"])),
@@ -1538,11 +1565,13 @@ def eval_phase(tree, ckpt: str):
     # pipelined paths equal): the serial path is held to the float32 gates
     X_ser, lat_ser, serial_wall, _, _ = timed_matrix(model_f32, decode_lookahead=0)
     X_pipe, lat_pipe, pipe_wall, _, _ = timed_matrix(model_f32)
-    t0 = time.perf_counter()
-    for i in range(0, nbase, bpb):      # the host decode alone, as the decode thread runs it
-        read_baselines_patches_batch(tree, "0", list(range(i, min(nbase, i + bpb))),
-                                     uvdist=True)
-    decode_s = time.perf_counter() - t0
+    decode_s = {}
+    for decoder, use_native in (("native", None), ("numpy", False)):
+        t0 = time.perf_counter()
+        for i in range(0, nbase, bpb):  # the host decode alone, as the decode thread runs it
+            read_baselines_patches_batch(tree, "0", list(range(i, min(nbase, i + bpb))),
+                                         uvdist=True, use_native=use_native)
+        decode_s[decoder] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(0, nbase, bpb):      # the raw reads of the device decode
         read_baselines_raw_batch(tree, "0", list(range(i, min(nbase, i + bpb))),
@@ -1563,7 +1592,8 @@ def eval_phase(tree, ckpt: str):
     sap_s = time.perf_counter() - t0
     X_demeaned = X_pipe - X_pipe.mean(axis=1, keepdims=True)
     row = {"phase": "eval_pipeline", "decode": "device", "serial_s": serial_wall,
-           "pipelined_s": pipe_wall, "host_decode_s": decode_s, "raw_read_s": raw_read_s,
+           "pipelined_s": pipe_wall, "host_decode_s": decode_s["native"],
+           "host_decode_numpy_s": decode_s["numpy"], "raw_read_s": raw_read_s,
            "device_decode_ms_per_chunk": time_ms(lambda: device_decode_patchify(vis, scales)),
            "forward_ms_per_chunk": host_ms(forward),
            "patches_per_chunk": int(x.shape[0]),
@@ -1762,12 +1792,298 @@ def cli_phase(tree, tmpdir: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------------ phases 17, 18
+
+NATIVE_GATE = dict(rtol=1e-5, atol=1e-5)   # JAX's native decode against numpy
+
+
+def openmp_runtimes() -> list[str]:
+    """The OpenMP runtimes mapped into this process (torch's, and the decoder's if it
+    brought another)."""
+    with open("/proc/self/maps") as f:
+        paths = {line.split()[-1] for line in f}
+    return sorted(p for p in paths
+                  if os.path.basename(p).startswith(("libgomp", "libomp", "libiomp")))
+
+
+def native_decode_phase(tree, eval_tree) -> dict:
+    """The native host decoder (``lshm_tpu_torch/native``) at full width: the default
+    sampler decodes natively here; ``sample()`` native against numpy from twin samplers
+    (420 patches, 840 with augment) within JAX's gate (rtol 1e-5, atol 1e-5), the same
+    rng state after, uv equal; ``read_baselines_patches_batch`` native against numpy on
+    a chunk of 8 baselines of each extract; native repeats bit for bit.  Then host ms
+    (median of 5) of ``sample()`` with each decoder, ``read_baseline_raw`` alone, the
+    numpy path in its parts, and the eval chunk with each decoder; the host's cores and
+    the OpenMP threads and runtimes."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from lshm_tpu_torch import native
+    from lshm_tpu_torch.config import preset
+    from lshm_tpu_torch.data import (MinibatchSampler, patchify, read_baseline_raw,
+                                     read_baselines_patches_batch)
+    from lshm_tpu_torch.data.h5io import _decode_channels, _pad_to
+
+    base = preset("full_khm").data
+    default = MinibatchSampler([tree], ["0"], base, seed=0)
+    row = {"phase": "native_decode", "build": native.build_info(),
+           "default_use_native": default.use_native, "cpu_count": os.cpu_count(),
+           "torch_threads": torch.get_num_threads(), "openmp_runtimes": openmp_runtimes(),
+           "gate": NATIVE_GATE}
+    ok = default.use_native is True
+
+    def close(a, b) -> tuple[bool, float]:
+        return bool(np.allclose(a, b, **NATIVE_GATE)), float(np.abs(a - b).max())
+
+    for augment in (False, True):
+        cfg = dataclasses.replace(base, augment=augment)
+        nat, ref, rep = (MinibatchSampler([tree], ["0"], cfg, seed=3, use_native=u)
+                         for u in (True, False, True))
+        cases = []
+        for _ in range(2):
+            a, b, c = nat.sample(), ref.sample(), rep.sample()
+            within, err = close(a.x, b.x)
+            cases.append({"patches": int(a.x.shape[0]), "within_gate": within,
+                          "max_abs_err": err, "uv_equal": bool(np.array_equal(a.uv, b.uv)),
+                          "same_rng_state": nat.rng.bit_generator.state
+                          == ref.rng.bit_generator.state,
+                          "repeat_bit_identical": bool(np.array_equal(a.x, c.x)),
+                          "patches_per_baseline": a.patches_per_baseline})
+            ok &= all(v for v in cases[-1].values() if isinstance(v, bool))
+            ok &= cases[-1]["patches"] == (840 if augment else 420)
+        row[f"sample_augment_{augment}"] = cases
+
+    chunk = list(range(8))
+    for name, src in (("train", tree), ("eval", eval_tree)):
+        got = read_baselines_patches_batch(src, "0", chunk, uvdist=True, use_native=True)
+        again = read_baselines_patches_batch(src, "0", chunk, uvdist=True, use_native=True)
+        want = read_baselines_patches_batch(src, "0", chunk, uvdist=True, use_native=False)
+        within, err = close(got[2], want[2])
+        case = {"patches": int(got[2].shape[0]), "within_gate": within, "max_abs_err": err,
+                "uv_equal": bool(np.array_equal(got[3], want[3])),
+                "repeat_bit_identical": bool(np.array_equal(got[2], again[2])),
+                "host_ms_native": host_ms(lambda: read_baselines_patches_batch(
+                    src, "0", chunk, uvdist=True, use_native=True)),
+                "host_ms_numpy": host_ms(lambda: read_baselines_patches_batch(
+                    src, "0", chunk, uvdist=True, use_native=False))}
+        ok &= all(v for v in case.values() if isinstance(v, bool))
+        row[f"chunk_{name}"] = case
+
+    timing = {}
+    for augment in (False, True):
+        cfg = dataclasses.replace(base, augment=augment)
+        nat, ref = (MinibatchSampler([tree], ["0"], cfg, seed=1, use_native=u)
+                    for u in (True, False))
+        timing[f"augment_{augment}"] = {"host_ms_sample_native": host_ms(nat.sample),
+                                        "host_ms_sample_numpy": host_ms(ref.sample)}
+    ids = list(range(base.batch_size))          # the numpy path in its parts, 12 baselines
+    g = tree["measurement"]["saps"]["0"]
+    x = _pad_to(_decode_channels(g["visibilities"], g["visibility_scale_factors"], ids, 4),
+                base.patch_size)
+    patches, _ = patchify(x, base.patch_size)
+
+    def clamp_znorm():
+        p = np.clip(patches, -base.clamp, base.clamp)
+        return (p - p.mean()) / p.std()
+
+    timing["parts_ms"] = {
+        "read_baseline_raw": host_ms(lambda: read_baseline_raw(tree, "0", ids)),
+        "numpy_decode_channels_and_pad": host_ms(lambda: _pad_to(_decode_channels(
+            g["visibilities"], g["visibility_scale_factors"], ids, 4), base.patch_size)),
+        "numpy_patchify": host_ms(lambda: patchify(x, base.patch_size)),
+        "numpy_clamp_znorm": host_ms(clamp_znorm)}
+
+    # where $CXX is another compiler than the path's g++ (say, one without OpenMP), the
+    # same source built by that g++, timed and held to the default build
+    other = shutil.which("g++")
+    if other and other != row["build"]["compiler"]:
+        saved = os.environ.get("CXX")
+        os.environ["CXX"] = other
+        try:
+            case = {"build": native.build_info()}
+            for augment in (False, True):
+                cfg = dataclasses.replace(base, augment=augment)
+                s = MinibatchSampler([tree], ["0"], cfg, seed=1, use_native=True)
+                case[f"host_ms_sample_augment_{augment}"] = host_ms(s.sample)
+            x_other = MinibatchSampler([tree], ["0"], base, seed=2,
+                                       use_native=True).sample().x
+        finally:
+            if saved is None:
+                del os.environ["CXX"]
+            else:
+                os.environ["CXX"] = saved
+        x_default = MinibatchSampler([tree], ["0"], base, seed=2,
+                                     use_native=True).sample().x
+        case["within_gate"], case["max_abs_err"] = close(x_other, x_default)
+        case["bit_identical"] = bool(np.array_equal(x_other, x_default))
+        case["openmp_runtimes"] = openmp_runtimes()
+        ok &= case["within_gate"]
+        timing["path_gxx"] = case
+    row["timing"] = timing
+    row["ok"] = bool(ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the native decoder disagrees with numpy: {row}")
+    return row
+
+
+def rica_phase(tree, tmpdir: str) -> dict:
+    """``python -m lshm_tpu_torch.cli rica`` at its defaults (10 minibatches x 8
+    baselines x 35 patches, patch 128, 4 channels, M = 256, l1 0.1, eta 0.1, 10 solver
+    iterations) on the card, in this process: n = 280, A [65536, 256] and X [65536, 280]
+    float32, each minibatch decoded by ``sample()`` (the native decoder).  ``scan_files``
+    in ``lshm_tpu_torch.data`` (where cmd_rica looks it up) returns the in-memory
+    extract for the phase, and ``fit_minibatch`` and ``sample`` are wrapped to time each
+    call on a synchronised host clock; all three are restored after.  Gates, on a
+    learner of the same seed and the CLI's first minibatch and initial code: the closure
+    within 1e-5 (value) and 2e-5 (gradient) of the same closure in float64 on the CPU;
+    one ``fit_minibatch`` twice from the same state, the same func_evals and losses
+    within 1e-6.  Then: the CLI's lines, finite loss and |dA| at every minibatch, the
+    atom PNG written, K1-K6 never launched.  Records ms per fit, func_evals and host
+    syncs per solve, ``sample()`` ms, the loss and |dA| sequences and peak memory."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    from lshm_tpu_torch import cli
+    from lshm_tpu_torch import data as data_mod
+    from lshm_tpu_torch.config import DataConfig, LBFGSConfig
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.optim.lbfgs import value_and_grad
+    from lshm_tpu_torch.rica import RICAConfig, RICADictionaryLearner
+
+    out_dir = os.path.join(tmpdir, "rica_out")
+    argv = ["rica", "--data-dir", "in-memory", "--out", out_dir]
+    args = cli.build_parser().parse_args(argv)
+
+    # the gates: cmd_rica's configuration, first minibatch and first initial code
+    dcfg = DataConfig(data_dir=args.data_dir, batch_size=args.batch,
+                      patch_size=args.patch_size, num_channels=args.channels, uvdist=False)
+    cfg = RICAConfig(
+        input_dim=args.channels * args.patch_size * args.patch_size,
+        dict_size=args.dict_size, l1_weight=args.l1, dict_lr=args.eta,
+        solver=LBFGSConfig(lr=1.0, max_iter=args.solver_iters, history_size=7,
+                           line_search=True, batch_mode=True),
+    )
+    learner = RICADictionaryLearner(cfg, seed=args.seed)        # the card
+    A0 = learner.A.clone()
+    X = learner.patches_to_columns(
+        MinibatchSampler([tree], ["0"], dcfg, seed=args.seed).sample().x)
+    n = X.shape[1]
+    gen = torch.Generator().manual_seed(args.seed)        # the CLI's first draw
+    s0 = torch.rand((cfg.dict_size * n,), generator=gen)
+    vg = value_and_grad(learner._loss)
+    Xt = torch.from_numpy(X)
+    v32, g32 = vg({"s": s0.to(learner.device)}, learner.A, Xt.to(learner.device))
+    v64, g64 = vg({"s": s0.double()}, A0.cpu().double(), Xt.double())
+    g32, g64 = g32["s"].cpu().double(), g64["s"]
+    closure = {"value_rel_err": abs(float(v32) - float(v64)) / abs(float(v64)),
+               "grad_rel_err": float((g32 - g64).abs().max() / g64.abs().max()),
+               "value": float(v64)}
+    repeat = []
+    for _ in range(2):
+        learner.A = A0.clone()
+        m = learner.fit_minibatch(X, s0=s0)
+        repeat.append({**m, "func_evals": learner.solver_state.func_evals,
+                       "host_syncs": learner.solver_state.host_syncs})
+    same_evals = repeat[0]["func_evals"] == repeat[1]["func_evals"]
+    loss_rel = abs(repeat[0]["loss"] - repeat[1]["loss"]) / abs(repeat[1]["loss"])
+    del learner, A0
+
+    # the CLI, timed per call
+    fits, samples = [], []
+    real_fit, real_sample = RICADictionaryLearner.fit_minibatch, MinibatchSampler.sample
+    real_scan = data_mod.scan_files
+
+    def timed_fit(self, X, generator=None, s0=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = real_fit(self, X, generator, s0)
+        torch.cuda.synchronize()
+        st = self.solver_state
+        fits.append({**m, "ms": (time.perf_counter() - t0) * 1e3,
+                     "func_evals": st.func_evals, "host_syncs": st.host_syncs,
+                     "n_iter": st.n_iter})
+        return m
+
+    def timed_sample(self):
+        t0 = time.perf_counter()
+        mb = real_sample(self)
+        samples.append({"ms": (time.perf_counter() - t0) * 1e3, "native": self.use_native,
+                        "patches": int(mb.x.shape[0])})
+        return mb
+
+    RICADictionaryLearner.fit_minibatch, MinibatchSampler.sample = timed_fit, timed_sample
+    data_mod.scan_files = lambda *a, **k: ([tree], ["0"])
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            cli.main(argv)
+    finally:
+        RICADictionaryLearner.fit_minibatch, MinibatchSampler.sample = real_fit, real_sample
+        data_mod.scan_files = real_scan
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    lines = stdout.getvalue().strip().splitlines()
+    png = os.path.join(out_dir, "dictionary_atoms.png")
+    with open(png, "rb") as f:
+        png_signature = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    fit_ms = [f["ms"] for f in fits]
+    row = {"phase": "rica", "argv": argv,
+           "defaults": {k: v for k, v in vars(args).items() if k not in ("fn", "cmd")},
+           "n": n, "A_shape": [cfg.input_dim, cfg.dict_size], "X_shape": list(X.shape),
+           "host_decoder": "native" if all(x["native"] for x in samples) else "numpy",
+           "closure_vs_f64": closure, "repeat": repeat, "repeat_same_func_evals": same_evals,
+           "repeat_loss_rel": loss_rel, "wall_s": wall,
+           "fit_ms": fit_ms, "fit_ms_median": statistics.median(fit_ms),
+           "fit_ms_median_after_first": statistics.median(fit_ms[1:]),
+           "sample_ms": [x["ms"] for x in samples],
+           "sample_ms_median": statistics.median(x["ms"] for x in samples),
+           "func_evals": [f["func_evals"] for f in fits],
+           "host_syncs": [f["host_syncs"] for f in fits],
+           "n_iter": [f["n_iter"] for f in fits],
+           "loss": [f["loss"] for f in fits], "dA_norm": [f["dA_norm"] for f in fits],
+           "lines": lines, "png_bytes": os.path.getsize(png),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+           "scan_files_restored": data_mod.scan_files is real_scan}
+    emit(row)
+    want = [re.compile(rf"rica {i} loss \S+ \|dA\| \S+") for i in range(args.iters)]
+    bad = []
+    if closure["value_rel_err"] > 1e-5 or closure["grad_rel_err"] > 2e-5:
+        bad.append(f"the closure on the card against float64: {closure}")
+    if not same_evals or loss_rel > 1e-6:
+        bad.append(f"a repeated fit differs: {repeat}")
+    if not all(math.isfinite(f["loss"]) and math.isfinite(f["dA_norm"]) for f in fits):
+        bad.append("a non-finite loss or |dA|")
+    if any(counts.values()):
+        bad.append(f"RICA launched a port kernel: {counts}")
+    if (len(lines) != args.iters + 1 or not all(w.fullmatch(x) for w, x in zip(want, lines))
+            or lines[-1] != f"wrote {png} ({cfg.dict_size} atoms)" or not png_signature):
+        bad.append(f"the CLI's output: {lines}")
+    if (row["host_decoder"] != "native" or len(fits) != args.iters or n != 280
+            or {x["patches"] for x in samples} != {n} or not row["scan_files_restored"]):
+        bad.append(f"not the CLI's default run: {row['host_decoder']}, {len(fits)} fits, "
+                   f"n = {n}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lshm_tpu_torch import native
     from lshm_tpu_torch.data import synth_extract
     from lshm_tpu_torch.device import use_exact_float32
     from lshm_tpu_torch.kernels import _build
@@ -1784,7 +2100,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     per_source = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": per_source})
+    t1 = time.perf_counter()
+    native.library()                  # the host decoder: a failed build raises here
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source_s": per_source,
+          "native_decoder_s": time.perf_counter() - t1, "compiler": native.compiler()})
 
     seconds = {"build": time.perf_counter() - t0}
 
@@ -1801,8 +2120,12 @@ def main() -> int:
 
     kernels = timed("parity", lambda: khm_phase(dev) + head_phase(dev))
     tree = timed("data", lambda: synth_extract(nstations=5, ntime=384, nfreq=512, seed=0))
+    eval_tree = timed("eval_data", lambda: synth_extract(
+        nstations=EVAL_STATIONS, ntime=384, nfreq=512, seed=1))
     emit({"phase": "data", "baselines": int(tree["measurement"]["saps"]["0"]
-                                            ["visibilities"].shape[0])})
+                                            ["visibilities"].shape[0]),
+          "eval_baselines": int(eval_tree["measurement"]["saps"]["0"]
+                                ["visibilities"].shape[0])})
     timed("device_decode", device_decode_phase, dev, tree)
     def trainer_and_agree(tmpdir):
         counts = trainer_decodes_phase(tree, tmpdir)
@@ -1822,13 +2145,13 @@ def main() -> int:
         """Train, cut and resume (phase 13), then evaluate (14) and export (15) the
         resumed run's final checkpoint."""
         ckpt = timed("resume", resume_phase, tree, tmpdir)
-        eval_tree = timed("eval_data", lambda: synth_extract(
-            nstations=EVAL_STATIONS, ntime=384, nfreq=512, seed=1))
         model, evals = timed("eval", eval_phase, eval_tree, ckpt)
         return evals, timed("export", export_phase, model, eval_tree)
 
     evals, export = in_tmpdir(from_checkpoint)
     cli_row = timed("cli", in_tmpdir, lambda d: cli_phase(tree, d))
+    timed("native_decode", native_decode_phase, tree, eval_tree)
+    timed("rica", in_tmpdir, lambda d: rica_phase(tree, d))
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2

@@ -8,9 +8,10 @@ subcommands, flags, defaults and printed lines over ``lshm_tpu_torch``.
     python -m lshm_tpu_torch.cli import-torch --net net.model --net-t netT.model \\
            --net-f netF.model --khm khm.model --out checkpoints/
     python -m lshm_tpu_torch.cli export --ckpt checkpoints/ --out lshm_forward.pt2
+    python -m lshm_tpu_torch.cli rica --data-dir data/ --out rica_out/
 
-Training, evaluation and export run on the card; ``LSHM_PLATFORM=cpu`` runs them on the
-CPU instead (any other value is an error).  ``rica``, ``graph``, ``bench`` and the
+Training, evaluation, export and RICA run on the card; ``LSHM_PLATFORM=cpu`` runs them
+on the CPU instead (any other value is an error).  ``graph``, ``bench`` and the
 multi-host flags keep JAX's flags and exit non-zero naming the ROADMAP item that ports
 them.  Every import of torch and of the port's modules happens inside a command, so
 ``--help`` loads neither.
@@ -174,6 +175,46 @@ def cmd_demo(args):
     print(f"wrote {args.out}")
 
 
+def cmd_rica(args):
+    """RICA linear dictionary learning over spectrogram patches, the CLI form of the
+    reference's rica_lofar.py script (reference: src/rica_lofar.py:44-104): per
+    minibatch, decoded on the host (``sample()``: the native decoder where it builds),
+    an L-BFGS sparse-code solve for X = A S and a dictionary ascent step; then the
+    learned atoms as one PNG grid.  A ``torch.Generator`` seeded with ``--seed`` draws
+    each initial code."""
+    import torch
+
+    from lshm_tpu_torch.config import DataConfig, LBFGSConfig
+    from lshm_tpu_torch.data import MinibatchSampler, scan_files
+    from lshm_tpu_torch.rica import RICAConfig, RICADictionaryLearner
+
+    files, saps = scan_files(args.data_dir)
+    if not files:
+        sys.exit(f"no valid H5 data under {args.data_dir!r}")
+    dcfg = DataConfig(
+        data_dir=args.data_dir, batch_size=args.batch, patch_size=args.patch_size,
+        num_channels=args.channels, uvdist=False,
+    )
+    sampler = MinibatchSampler(files, saps, dcfg, seed=args.seed)
+    cfg = RICAConfig(
+        input_dim=args.channels * args.patch_size * args.patch_size,
+        dict_size=args.dict_size, l1_weight=args.l1, dict_lr=args.eta,
+        solver=LBFGSConfig(lr=1.0, max_iter=args.solver_iters, history_size=7,
+                           line_search=True, batch_mode=True),
+    )
+    learner = RICADictionaryLearner(cfg, seed=args.seed, device=_device())
+    gen = torch.Generator().manual_seed(args.seed)
+    for i in range(args.iters):
+        mb = sampler.sample()
+        X = learner.patches_to_columns(mb.x)
+        m = learner.fit_minibatch(X, gen)
+        print(f"rica {i} loss {m['loss']:.6e} |dA| {m['dA_norm']:.6e}")
+    os.makedirs(args.out, exist_ok=True)
+    learner.save_atom_images(args.out, channels=args.channels, patch=args.patch_size)
+    print(f"wrote {os.path.join(args.out, 'dictionary_atoms.png')} "
+          f"({cfg.dict_size} atoms)")
+
+
 def cmd_export(args):
     """The trained forward, parameters in the program, as a ``torch.export`` artifact
     that a process importing ``lshm_tpu_torch`` loads and calls without model code."""
@@ -267,20 +308,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_demo)
 
-    p = sub.add_parser("rica", help="learn a RICA sparse dictionary over patches "
-                                    "(not ported: ROADMAP A7)")
+    p = sub.add_parser("rica", help="learn a RICA sparse dictionary over patches")
     p.add_argument("--data-dir", required=True)
     p.add_argument("--out", default="rica_out")
-    p.add_argument("--iters", type=int, default=10)
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--iters", type=int, default=10,
+                   help="minibatches (reference runs 80 epochs x 100 iters)")
+    p.add_argument("--batch", type=int, default=8, help="baselines per minibatch "
+                   "(reference default_batch=128, src/rica_lofar.py:23)")
     p.add_argument("--patch-size", type=int, default=128)
     p.add_argument("--channels", type=int, default=4)
     p.add_argument("--dict-size", type=int, default=256, metavar="M")
-    p.add_argument("--l1", type=float, default=0.1)
-    p.add_argument("--eta", type=float, default=0.1)
-    p.add_argument("--solver-iters", type=int, default=10)
+    p.add_argument("--l1", type=float, default=0.1, help="lambda1 sparsity weight")
+    p.add_argument("--eta", type=float, default=0.1, help="dictionary ascent rate")
+    p.add_argument("--solver-iters", type=int, default=10,
+                   help="L-BFGS max_iter per sparse-code solve")
     p.add_argument("--seed", type=int, default=0)
-    p.set_defaults(fn=_not_ported("the rica subcommand", "A7, RICA"))
+    p.set_defaults(fn=cmd_rica)
 
     p = sub.add_parser("export", help="serialize the trained forward (torch.export)")
     p.add_argument("--ckpt", required=True)

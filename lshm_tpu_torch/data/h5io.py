@@ -3,7 +3,8 @@
 the evaluation readers (``read_baselines_patches_batch``, ``read_baseline_patches``,
 ``read_baseline_flat``), decoded on the host, and the raw reads
 (``read_baseline_raw``, ``read_baselines_raw_batch``) whose int8 visibilities
-``data/device_decode.py`` decodes on the device.
+``data/device_decode.py`` decodes on the device.  ``read_baselines_patches_batch``
+decodes through the native decoder (``native/``) or in numpy (``use_native``).
 
 Every reader takes a ``source``: a path to an H5 file (``h5py`` is imported only then)
 or the same tree held in memory as nested dicts of numpy arrays
@@ -39,6 +40,27 @@ _POLS_4CH = (0, 3)
 _POLS_8CH = (0, 1, 2, 3)
 
 Source = Union[str, os.PathLike, Mapping]
+
+
+def pols_for(num_channels: int) -> tuple[int, ...]:
+    """The polarisations whose (re, im) make ``num_channels`` channels."""
+    if num_channels not in (4, 8):
+        raise ValueError(f"num_channels must be 4 or 8, got {num_channels}")
+    return _POLS_4CH if num_channels == 4 else _POLS_8CH
+
+
+def native_choice(use_native: bool | None) -> bool:
+    """The JAX package's rule for ``use_native``: None means the native decoder where
+    there is a C++ compiler, else numpy; True the native decoder; False numpy.  When
+    the answer is native the library is built or loaded now, so that a build that
+    fails raises here rather than falling back."""
+    from lshm_tpu_torch import native
+
+    if use_native is None:
+        use_native = native.available()
+    if use_native:
+        native.library()
+    return bool(use_native)
 
 
 @contextlib.contextmanager
@@ -121,7 +143,7 @@ def _decode_channels(g, h, baseline_ids: Sequence[int], num_channels: int) -> np
     """int8 visibilities x per-(baseline, freq, pol) scales -> float32
     [B, ntime, nfreq, C]; channels 2i / 2i+1 are re / im of the i-th selected pol
     (reference: src/lofar_tools.py:112-141)."""
-    pols = _POLS_4CH if num_channels == 4 else _POLS_8CH
+    pols = pols_for(num_channels)
     _, ntime, nfreq, _, _ = g.shape
     out = np.empty((len(baseline_ids), ntime, nfreq, num_channels), dtype=np.float32)
     for i, b in enumerate(baseline_ids):
@@ -204,34 +226,41 @@ def read_baselines_patches_batch(source: Source, sap: str, baseline_ids: Sequenc
                                  use_native: bool | None = None):
     """Evaluation reader for many baselines in one open of the source: the same as
     ``read_baseline_patches`` per id (patch, clamp to +-1e6, z-normalise each baseline
-    over its own patches; reference: src/lofar_tools.py:214-349).  ``use_native=True``
-    raises (the port has no native decoder yet); None and False decode in numpy.
+    over its own patches; reference: src/lofar_tools.py:214-349).  ``use_native``
+    follows ``native_choice``: the native decoder is called once per baseline, so the
+    z-norm stays per baseline; False decodes in numpy.
 
     Returns (patchx, patchy, patches [B*ppb, ps, ps, C], [uv [B*ppb, 2]],
     [station_pairs [B, 2]]), baseline-major."""
-    if use_native:
-        raise NotImplementedError(
-            "use_native=True: the native host decoder (lshm_tpu/native) is not ported "
-            "yet (ROADMAP section A6, the next slice); the port decodes in numpy on the "
-            "host, or on the device (data/device_decode.py)")
     if len(baseline_ids) == 0:
         raise ValueError("read_baselines_patches_batch: baseline_ids must be non-empty")
-    if num_channels not in (4, 8):
-        raise ValueError(f"num_channels must be 4 or 8, got {num_channels}")
+    pols = pols_for(num_channels)
+    use_native = native_choice(use_native)
     with _open(source) as f:
         g = f["measurement"]["saps"][sap]
-        x = _decode_channels(g["visibilities"], g["visibility_scale_factors"],
-                             baseline_ids, num_channels)
+        vis, scales = g["visibilities"], g["visibility_scale_factors"]
+        if use_native:
+            from lshm_tpu_torch import native
+
+            outs = [native.decode_patchify(np.asarray(vis[b])[None],
+                                           np.asarray(scales[b])[None], pols, patch_size,
+                                           1e6, normalize=True)
+                    for b in baseline_ids]
+            px, py = outs[0][1]
+            patches = np.concatenate([o for o, _ in outs])
+        else:
+            x = _decode_channels(vis, scales, baseline_ids, num_channels)
         uv = _compute_uv_open(f, sap, baseline_ids) if uvdist else None
         pairs = (np.asarray(g["baselines"][...])[np.asarray(baseline_ids)]
                  if give_baselines else None)
-    patches, (px, py) = patchify(_pad_to(x, patch_size), patch_size)
-    patches = np.clip(patches, -1e6, 1e6)
-    # per-baseline z-norm over that baseline's own patch group (baseline-major rows)
-    grouped = patches.reshape(len(baseline_ids), px * py, *patches.shape[1:])
-    mean = grouped.mean(axis=(1, 2, 3, 4), keepdims=True)
-    std = grouped.std(axis=(1, 2, 3, 4), keepdims=True)
-    patches = ((grouped - mean) / np.where(std > 0, std, 1.0)).reshape(patches.shape)
+    if not use_native:
+        patches, (px, py) = patchify(_pad_to(x, patch_size), patch_size)
+        patches = np.clip(patches, -1e6, 1e6)
+        # per-baseline z-norm over that baseline's own patch group (baseline-major rows)
+        grouped = patches.reshape(len(baseline_ids), px * py, *patches.shape[1:])
+        mean = grouped.mean(axis=(1, 2, 3, 4), keepdims=True)
+        std = grouped.std(axis=(1, 2, 3, 4), keepdims=True)
+        patches = ((grouped - mean) / np.where(std > 0, std, 1.0)).reshape(patches.shape)
     result: list = [px, py, patches]
     if uvdist:
         result.append(np.repeat(uv, px * py, axis=0))

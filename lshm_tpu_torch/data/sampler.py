@@ -4,8 +4,9 @@
 Randomly pick one (file, SAP), randomly pick ``batch_size`` baselines, decode int8 x scale
 into real channels, patchify baseline-major, clamp, z-normalise over the minibatch, and
 optionally double the batch with an augmentation transform interleaved per baseline.
-``sample()`` does all of it on the host; ``sample_raw()`` draws the same minibatch and
-leaves the decode to the device (``DeviceDecodePrefetcher``, ``data/device_decode.py``).
+``sample()`` does all of it on the host, through the native decoder (``native/``) or in
+numpy (``use_native``); ``sample_raw()`` draws the same minibatch and leaves the decode
+to the device (``DeviceDecodePrefetcher``, ``data/device_decode.py``).
 The numpy rng stream (``default_rng([seed, process_index])``, ``reseed``, ``skip``) is
 the JAX sampler's, so both packages draw identical minibatches from the same seed.
 A file entry may be a path or an in-memory extract tree (``synth_extract``).
@@ -21,10 +22,12 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from lshm_tpu_torch import native
 from lshm_tpu_torch.config import DataConfig
 from lshm_tpu_torch.data.device_decode import device_decode_train
-from lshm_tpu_torch.data.h5io import (Source, compute_uv, read_baseline_channels,
-                                      read_baseline_raw, read_metadata)
+from lshm_tpu_torch.data.h5io import (Source, compute_uv, native_choice, pols_for,
+                                      read_baseline_channels, read_baseline_raw,
+                                      read_metadata)
 from lshm_tpu_torch.data.patches import patch_grid_shape, patchify
 
 
@@ -39,6 +42,11 @@ class Minibatch:
     patchx: int
     patchy: int
     num_baselines: int
+
+    @property
+    def patches_per_baseline(self) -> int:
+        """patchx * patchy, twice that with augmentation."""
+        return self.x.shape[0] // self.num_baselines
 
 
 @dataclass
@@ -103,12 +111,17 @@ class _SignatureRng:
 
 
 class MinibatchSampler:
-    """Random (file, SAP, baselines) sampler producing ``Minibatch`` objects."""
+    """Random (file, SAP, baselines) sampler producing ``Minibatch`` objects.
+
+    ``use_native``: how ``sample()`` decodes.  None means the native decoder wherever
+    there is a C++ compiler (``native.available()``), else numpy; True the native
+    decoder, or raise; False numpy.  A native build that fails raises here.  Both make
+    the same rng draws."""
 
     def __init__(self, file_list: list[Source], sap_list: list[str], cfg: DataConfig,
                  seed: int = 0,
                  augment_fn: Callable[[np.random.Generator, np.ndarray], np.ndarray] | None = None,
-                 process_index: int = 0):
+                 process_index: int = 0, use_native: bool | None = None):
         if len(file_list) != len(sap_list) or not file_list:
             raise ValueError("file_list and sap_list must be non-empty and parallel")
         self.file_list = file_list
@@ -119,6 +132,7 @@ class MinibatchSampler:
         self.rng = np.random.default_rng([seed, process_index])
         self.augment_fn = augment_fn or default_augment
         self._meta = [read_metadata(f, s) for f, s in zip(file_list, sap_list)]
+        self.use_native = native_choice(use_native)
         # the augment fn must consume the rng identically for every input: probe it on
         # two different inputs with a throwaway rng, so a violation fails here
         self._augment_sig: list | None = None
@@ -167,13 +181,19 @@ class MinibatchSampler:
         idx, baseline_ids = self._draw()
         source, sap = self.file_list[idx], self.sap_list[idx]
 
-        x = read_baseline_channels(source, sap, baseline_ids, cfg.num_channels,
-                                   cfg.patch_size)
-        patches, (px, py) = patchify(x, cfg.patch_size)
-        patches = np.clip(patches, -cfg.clamp, cfg.clamp)
-        if cfg.normalize:
-            std = patches.std()
-            patches = (patches - patches.mean()) / (std if std > 0 else 1.0)
+        if self.use_native:
+            vis, scales = read_baseline_raw(source, sap, baseline_ids)
+            patches, (px, py) = native.decode_patchify(
+                vis, scales, pols_for(cfg.num_channels), cfg.patch_size, cfg.clamp,
+                normalize=cfg.normalize)
+        else:
+            x = read_baseline_channels(source, sap, baseline_ids, cfg.num_channels,
+                                       cfg.patch_size)
+            patches, (px, py) = patchify(x, cfg.patch_size)
+            patches = np.clip(patches, -cfg.clamp, cfg.clamp)
+            if cfg.normalize:
+                std = patches.std()
+                patches = (patches - patches.mean()) / (std if std > 0 else 1.0)
 
         if cfg.uvdist:
             uv = compute_uv(source, sap, baseline_ids)          # [B, 2]

@@ -39,11 +39,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
-        h.update(path.read_bytes())
+def digest(flags, paths) -> str:
+    """16 hex digits of SHA-256 over the flags and the files' bytes: the part of a
+    library's name that changes whenever its build would."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in paths:
+        h.update(Path(path).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _digest(name: str) -> str:
+    return digest(NVCC_FLAGS, sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"])
+
+
+def start_build(cmd: list[str], target: Path) -> tuple[Path, subprocess.Popen]:
+    """Start ``cmd -o <temporary file>`` for ``target``; ``finish_build`` waits for it.
+    The temporary file is named after the process, so processes building the same
+    library at once do not write over each other."""
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    return tmp, subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(tmp: Path, proc: subprocess.Popen, target: Path) -> str | None:
+    """Wait for a build of ``start_build`` and move its output to ``target`` (atomic:
+    a half-written library is never loaded).  Returns the compiler's output if it
+    failed, else None."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return out or f"exit code {proc.returncode}"
+    os.replace(tmp, target)
+    return None
 
 
 def _target(name: str) -> Path:
@@ -63,19 +90,14 @@ def build_all() -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
-        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
+        procs[name] = start_build([nvcc, *NVCC_FLAGS, str(CSRC / f"{name}.cu")],
+                                  _target(name))
     times, errors = {}, []
     for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+        out = finish_build(tmp, proc, _target(name))
         times[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
+        if out is not None:
             errors.append(f"nvcc failed for {name}.cu:\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, _target(name))   # atomic: a half-written .so is never loaded
     if errors:
         raise RuntimeError("\n".join(errors))
     return times

@@ -219,7 +219,6 @@ def test_each_subcommand_lists_jax_options(sub, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["rica", "--data-dir", "d"], "A7"),
     (["graph", "line", "--data-dir", "d", "--ckpt", "c"], "A8"),
     (["bench"], "C.8"),
     (["train", "--data-dir", "d", "--num-processes", "2"], "A9"),

@@ -79,7 +79,7 @@ def test_sampler_stream_matches_jax(jax_h5, augment):
     jcfg = JDataConfig(batch_size=3, augment=augment)
     cfg = DataConfig(batch_size=3, augment=augment)
     j = JSampler([jax_h5], ["0"], jcfg, seed=5, use_native=False, process_index=0)
-    t = MinibatchSampler([synth_extract(**SYNTH)], ["0"], cfg, seed=5)
+    t = MinibatchSampler([synth_extract(**SYNTH)], ["0"], cfg, seed=5, use_native=False)
 
     def same():
         a, b = j.sample(), t.sample()

@@ -170,7 +170,7 @@ def test_readers_match_jax(synth_h5, ids):
                                               give_baselines=True, use_native=False)
     for src in (synth_h5, tree):
         got = h5io.read_baselines_patches_batch(src, "0", ids, 128, 4, uvdist=True,
-                                                give_baselines=True)
+                                                give_baselines=True, use_native=False)
         assert got[:2] == want[:2]
         for g, w in zip(got[2:], want[2:]):
             np.testing.assert_array_equal(g, w)

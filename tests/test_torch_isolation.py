@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX package (nor
-sklearn, matplotlib or PIL, which the card's machine lacks), its entry points refuse to
-fall back to the CPU, its kernel wrappers refuse inputs the kernels do not take,
-unported config fields and options raise, and chip_smoke.py fails without a card."""
+sklearn, matplotlib or PIL at import: the functions that draw import them), names no
+file of the JAX package's native decoder, its entry points refuse to fall back to the
+CPU, its kernel wrappers refuse inputs the kernels do not take, unported config fields
+and options raise, and chip_smoke.py fails without a card."""
 
 import ast
 import dataclasses
@@ -70,6 +71,21 @@ def test_cli_help_imports_neither_jax_nor_torch():
     assert r.stdout.split()[-1] == "ok"
 
 
+def test_port_never_names_the_jax_native_decoder():
+    """The port builds, writes and loads its native decoder in its own tree: no file of
+    the port, nor chip_smoke.py, names the JAX package's native directory, whose
+    binding builds there during the JAX tests."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "lshm_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith((".py", ".cpp", ".cu",
+                                                                   ".cuh"))]
+    assert any(p.endswith(os.path.join("native", "patchio.cpp")) for p in paths)
+    for path in paths:
+        text = open(path).read()
+        for name in ("lshm_tpu/native", "lshm_tpu.native", "lshm_tpu import native"):
+            assert name not in text, (path, name)
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
@@ -117,15 +133,12 @@ def test_evaluation_without_device_needs_a_card(monkeypatch):
 
 
 def test_unported_decoders_raise_by_name():
-    """The native host decoder (ROADMAP A6) is not ported: asking for it raises, never a
-    silent numpy fallback.  The device-side decode (A5) is ported, and asking for it
-    where it cannot run raises too: without prefetch, or with a custom augment."""
-    from lshm_tpu_torch.data import (MinibatchSampler, read_baselines_patches_batch,
-                                     synth_extract)
+    """Asking for the device-side decode (A5) where it cannot run raises, never a silent
+    host fallback: without prefetch, or with a custom augment.  (The native host decoder,
+    A6, is ported: ``tests/test_torch_native.py`` holds it and its ``use_native`` rule.)"""
+    from lshm_tpu_torch.data import MinibatchSampler, synth_extract
 
     tree = synth_extract()
-    with pytest.raises(NotImplementedError, match="A6"):
-        read_baselines_patches_batch(tree, "0", [0], use_native=True)
     cfg = _rep(_rep(tc.Config(), "data", device_decode=True, prefetch=0, batch_size=1),
                "model", latent_dim=16, latent_dim_1d=8, num_clusters=4)
     sampler = MinibatchSampler([tree], ["0"], cfg.data)
