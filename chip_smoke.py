@@ -133,9 +133,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 repeated (same func_evals, losses 1e-6); then the CLI's lines, finite
                 loss and |dA|, the atom PNG, no port kernel launched; ms per fit,
                 func_evals and host syncs per solve, sample() ms, peak memory
+  19. graph     the graph networks from the float32 checkpoint of 13, at LOFAR's 62
+                stations (two SAPs of 1,953 baselines, 128 x 256 channels, made by
+                lofar_extract from the eval extract's baselines): the line graph built
+                on the card (1,953 nodes, 236,437 edges, K3 245 times) and trained 200
+                epochs, twice from the same initial weights (the distance printed);
+                train_station_graph_epochs at the CLI's defaults over both SAPs (5
+                rebuilds x 20 steps; each rebuild 62 nodes, 3,782 edges, K3 123 times);
+                the losses finite and falling as in JAX's tests; each net on the card,
+                at its initial weights and trained, against copies on the CPU: float64
+                within 1e-9; float32 within 1e-5 (output, loss) and 2e-5 (gradients),
+                or within twice the CPU float32's distance from float64 over 6 orders
+                of the edges;
+                then cli.main(["graph", "line"|"station", ...]) on the eval extract;
+                build seconds, each rebuild's read+decode and rest, ms per line epoch and
+                per station step (CUDA events), peak memory
 Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15, the CLI's train,
-resume and exported call, and 18) is driven with the launch counts set to 0 just before
-it and read just after.  Then a seconds line, the kernels table as one JSON line, the
+resume and exported call, 18, and 19's graph builds, trainings and CLI calls) is driven
+with the launch counts set to 0 just before it and read just after.  Then a seconds line, the kernels table as one JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}} as the last line.
 Without a CUDA device it exits 2 before printing any result.  It imports nothing of JAX
 or of the JAX package.
@@ -2077,6 +2092,359 @@ def rica_phase(tree, tmpdir: str) -> dict:
     return row
 
 
+# ------------------------------------------------------------------------- phase 19
+
+LOFAR_STATIONS = 62            # LOFAR's full array: 1,953 baselines with autocorrelations
+GRAPH_GATE = (1e-5, 2e-5)      # the card against the CPU: output and loss, gradients
+
+
+def lofar_extract(source: dict, nstations: int = LOFAR_STATIONS, ntime: int = 128,
+                  nfreq: int = 256, saps: tuple[str, ...] = ("0", "1"),
+                  seed: int = 2) -> dict:
+    """``synth_extract``'s schema at ``nstations`` stations (every pair, with the
+    autocorrelations) without its fringe simulator, which takes 45.7 s a SAP of 62
+    stations on one core: each baseline is a seeded random time x frequency crop of one
+    of ``source``'s baselines of its kind (an autocorrelation of an autocorrelation, a
+    cross-correlation of a cross-correlation) with its scale factors; the stations'
+    positions are drawn once, uniform in +-2 km as ``synth_extract`` draws them.
+    Copies only."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = source["measurement"]["saps"]["0"]
+    src_vis, src_scales = g["visibilities"], g["visibility_scale_factors"]
+    _, T, F, _, _ = src_vis.shape
+    kinds = {True: [], False: []}
+    for b, (s1, s2) in enumerate(g["baselines"]):
+        kinds[bool(s1 == s2)].append(b)
+    pairs = [(i, j) for i in range(nstations) for j in range(i, nstations)]
+    xyz = rng.uniform(-2000.0, 2000.0, size=(nstations, 3))
+    tree = {"measurement": {"info": source["measurement"]["info"], "saps": {}}}
+    for sap in saps:
+        vis = np.empty((len(pairs), ntime, nfreq, 4, 2), np.int8)
+        scales = np.empty((len(pairs), nfreq, 4), np.float32)
+        for b, (s1, s2) in enumerate(pairs):
+            same = kinds[s1 == s2]
+            k = same[int(rng.integers(len(same)))]
+            t0, f0 = int(rng.integers(0, T - ntime + 1)), int(rng.integers(0, F - nfreq + 1))
+            vis[b] = src_vis[k, t0:t0 + ntime, f0:f0 + nfreq]
+            scales[b] = src_scales[k, f0:f0 + nfreq]
+        tree["measurement"]["saps"][sap] = {
+            "visibilities": vis, "visibility_scale_factors": scales,
+            "central_frequencies": np.linspace(110e6, 180e6, nfreq),
+            "baselines": np.array(pairs, dtype=np.int64),
+            "antenna_locations": {"XYZ": xyz}}
+    return tree
+
+
+def line_edges(nstations: int) -> int:
+    """The line graph's edges over every pair of ``nstations`` stations with the
+    autocorrelations: an autocorrelation meets the ``nstations`` baselines of its
+    station, a cross-correlation those of its first station and the others of its
+    second (``line_graph_edges``)."""
+    return nstations ** 2 + nstations * (nstations - 1) // 2 * (2 * nstations - 1)
+
+
+def card_vs_cpu(net, inputs, loss_fn, targets, shift_free=(), orders: int = 6) -> dict:
+    """``net`` (on the card) against copies of it on the CPU with the same weights and
+    graph: for the output, the loss and each parameter's gradient, the largest absolute
+    difference over the largest absolute value.  ``f64_card_vs_cpu``: float64 copies on
+    the card and on the CPU, the same function where the order of the sums no longer
+    shows.  ``card_vs_cpu``: the card's float32 against the CPU's.  ``card_vs_f64`` and
+    ``cpu_vs_f64``: the card's float32 and, the largest over ``orders`` orders of the
+    edges (the given order first), the CPU's float32 against float64 on the CPU.  A
+    gradient that is zero but for rounding (``shift_free``) is measured against the
+    net's largest gradient instead."""
+    import copy
+
+    def run(m, edge_order=None):
+        p0 = next(m.parameters())
+        put = lambda t: t.to(p0.device, p0.dtype if t.is_floating_point() else t.dtype)
+        args = [put(t) for t in inputs]
+        if edge_order is not None:          # (x, edge_index[, edge_attr]) in another order
+            args[1] = args[1][:, edge_order]
+            args[2:] = [a[edge_order] for a in args[2:]]
+        m.zero_grad(set_to_none=True)
+        pred = m(*args)
+        loss = loss_fn(pred, *map(put, targets))
+        loss.backward()
+        out = {"output": pred, "loss": loss,
+               **{f"grad {n}": p.grad for n, p in m.named_parameters()}}
+        return {k: v.detach().cpu().double() for k, v in out.items()}
+
+    cpu32, cpu64 = copy.deepcopy(net).cpu(), copy.deepcopy(net).cpu().double()
+    card, f64 = run(net), run(cpu64)
+    card64 = run(copy.deepcopy(net).double())
+    nedges = inputs[1].shape[1]
+    gen = torch.Generator().manual_seed(0)
+    cpu = [run(cpu32)] + [run(cpu32, torch.randperm(nedges, generator=gen))
+                          for _ in range(orders - 1)]
+    largest = max(float(v.abs().max()) for k, v in f64.items() if k.startswith("grad "))
+
+    def err(a, b, key):
+        return abs_err(a, b) / largest if key[5:] in shift_free else rel_err(a, b)
+
+    return {k: {"f64_card_vs_cpu": err(card64[k], f64[k], k),
+                "card_vs_cpu": err(card[k], cpu[0][k], k),
+                "card_vs_f64": err(card[k], f64[k], k),
+                "cpu_vs_f64": max(err(c[k], f64[k], k) for c in cpu)} for k in f64}
+
+
+def within_graph_gate(check: dict) -> bool:
+    """float64 on the card within 1e-9 of float64 on the CPU; and in float32 the output
+    and loss within 1e-5 of the CPU's, each gradient within 2e-5, or, where float32
+    itself is that sensitive to the order of its sums, the card no farther from float64
+    than twice the CPU's float32 over several orders of the edges."""
+    return all(e["f64_card_vs_cpu"] <= 1e-9
+               and (e["card_vs_cpu"] <= GRAPH_GATE[k.startswith("grad ")]
+                    or e["card_vs_f64"] <= 2 * e["cpu_vs_f64"]) for k, e in check.items())
+
+
+def graph_phase(model, eval_tree, ckpt: str, nstations: int = LOFAR_STATIONS,
+                ntime: int = 128, nfreq: int = 256) -> dict:
+    """The graph networks (``lshm_tpu_torch.graph``) on the card from the float32
+    full_khm checkpoint (latent 224 + 2 x 16, 10 clusters), at LOFAR's 62 stations: two
+    SAPs of 1,953 baselines (``lofar_extract``; 128 x 256 channels, 2 patches a
+    baseline).  Line graph: ``build_line_graph_data`` on SAP 0 (decoded on the card,
+    K3 once per chunk of 8: 245 launches), 1,953 nodes, 236,437 edges, x [1953, 256],
+    y [1953, 10]; ``train_line_graph`` for the CLI's 200 epochs, finite losses, the
+    last below the first, then again from the same initial weights (the distance
+    printed: ``index_add_`` sums with float atomics on the card).  Station graph:
+    ``train_station_graph_epochs`` at the CLI's defaults over both SAPs (5 rebuilds x
+    20 steps, edge MLP (256, 128)); each rebuild 62 nodes all masked in and 3,782 edges
+    all populated, K3 123 times (615 in all); 100 finite losses, the mean of the last 20
+    below the first 20's.  Each net on the card, at the trainer's initial weights and
+    trained, against copies on the CPU with the same weights and graph: in float64
+    within 1e-9; in float32 output and loss 1e-5, gradients 2e-5, or within twice the
+    CPU float32's distance from float64 over 6 orders of the edges
+    (``within_graph_gate``).  Then ``cli.main(["graph", "line"|"station", ...])`` in
+    this process over the eval extract (``scan_files`` in ``lshm_tpu_torch.data``
+    replaced for the phase, restored after), JAX's result lines.
+    Records build seconds, each rebuild's read+decode and rest, ms per line epoch and
+    per station step (CUDA events) and peak memory."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    import numpy as np
+
+    from lshm_tpu_torch import cli
+    from lshm_tpu_torch import data as data_mod
+    from lshm_tpu_torch.data import read_metadata
+    from lshm_tpu_torch.graph import (build_line_graph_data, station_graph_maps,
+                                      train_line_graph,
+                                      train_station_graph, train_station_graph_epochs)
+    from lshm_tpu_torch.graph import train as gtrain
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+
+    t0 = time.perf_counter()
+    tree = lofar_extract(eval_tree, nstations, ntime, nfreq)
+    nbase = nstations * (nstations + 1) // 2
+    row = {"phase": "graph", "stations": nstations, "saps": 2, "baselines_per_sap": nbase,
+           "time_x_freq": [ntime, nfreq], "extract_s": time.perf_counter() - t0,
+           "extract_gb": sum(a.nbytes for g in tree["measurement"]["saps"].values()
+                             for a in (g["visibilities"], g["visibility_scale_factors"]))
+           / 1e9}
+    bad = []
+
+    def mse(pred, y):
+        return torch.mean((pred - y) ** 2)
+
+    def masked_mse(pred, y, mask):
+        return torch.sum(mask * (pred - y) ** 2) / torch.clamp(torch.sum(mask), min=1.0)
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    # the line graph: built and trained 200 epochs, twice from the same initial weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    line = build_line_graph_data(model, tree, "0")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k3 = launch_counts()["head_fwd"]
+    runs = []
+    for _ in range(2):
+        s, e = events()
+        s.record()
+        net, losses = train_line_graph(line)                 # 200 epochs, the card
+        e.record()
+        e.synchronize()
+        runs.append((net, losses, s.elapsed_time(e)))
+    (net, losses, ms), (net2, losses2, ms2) = runs
+    sd, sd2 = net.state_dict(), net2.state_dict()
+    dev = next(net.parameters()).device
+    x, ei, y = (torch.from_numpy(a) for a in (line.x, line.edge_index, line.y))
+    check = {"initial": card_vs_cpu(train_line_graph(line, epochs=0)[0], (x, ei), mse, (y,)),
+             "trained": card_vs_cpu(net, (x, ei), mse, (y,))}
+    row["line"] = {
+        "nodes": int(line.x.shape[0]), "edges": int(line.edge_index.shape[1]),
+        "x_shape": list(line.x.shape), "y_shape": list(line.y.shape),
+        "build_s": build_s, "k3_launches": k3, "epochs": len(losses),
+        "ms_per_epoch": [ms / len(losses), ms2 / len(losses2)],
+        "loss_first_last": [losses[0], losses[-1]],
+        "repeat": {"bit_identical": losses == losses2
+                   and all(torch.equal(sd[k], sd2[k]) for k in sd),
+                   "losses_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, losses2)),
+                   "weights_rel": _state_distance(sd, sd2)},
+        "card_vs_cpu": check, "device": str(dev),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    L = row["line"]
+    K, D = model.khm.M.shape
+    if (L["nodes"], L["edges"], L["x_shape"], L["y_shape"]) != (
+            nbase, line_edges(nstations), [nbase, D], [nbase, K]):
+        bad.append(f"the line graph's shape: {L}")
+    if k3 != math.ceil(nbase / 8):
+        bad.append(f"K3 launched {k3} times building the line graph, "
+                   f"expected {math.ceil(nbase / 8)}")
+    if not (all(math.isfinite(v) for v in losses + losses2) and losses[-1] < losses[0]):
+        bad.append(f"the line graph's losses: {losses[0]} -> {losses[-1]}")
+    if not all(map(within_graph_gate, check.values())):
+        bad.append(f"LineGraphNet on the card against the CPU: {check}")
+
+    # the station graph: 5 rebuilds x 20 steps over both SAPs, each rebuild timed
+    stations, bmap = station_graph_maps(
+        [read_metadata(tree, sap, give_baselines=True)[0] for sap in ("0", "1")])
+    rebuilds, graphs, steps = [], [], []
+    real_build, real_read = gtrain.build_station_graph_data, gtrain.read_baselines_patches_batch
+    real_step = gtrain._make_station_step
+
+    def timed_read(*a, **k):
+        t = time.perf_counter()
+        out = real_read(*a, **k)
+        rebuilds[-1]["read_decode_s"] += time.perf_counter() - t
+        return out
+
+    def timed_build(model, source, sap, *a, **k):
+        rebuilds.append({"sap": sap, "read_decode_s": 0.0})
+        before = launch_counts()["head_fwd"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        data = real_build(model, source, sap, *a, **k)
+        torch.cuda.synchronize()
+        r = rebuilds[-1]
+        r["s"] = time.perf_counter() - t
+        r["rest_s"] = r["s"] - r["read_decode_s"]   # copies, the forward, the labels
+        r.update(k3_launches=launch_counts()["head_fwd"] - before,
+                 nodes=int(data.x.shape[0]), masked_in=int(data.node_mask.sum()),
+                 edges=int(data.edge_index.shape[1]))
+        graphs.append(data)
+        return data
+
+    def timed_steps(net, opt):
+        step = real_step(net, opt)
+
+        def timed(*a):
+            s, e = events()
+            s.record()
+            loss = step(*a)
+            e.record()
+            steps.append((s, e))
+            return loss
+
+        return timed
+
+    gtrain.build_station_graph_data, gtrain.read_baselines_patches_batch = timed_build, timed_read
+    gtrain._make_station_step = timed_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        snet, slosses = train_station_graph_epochs(model, [tree, tree], ["0", "1"],
+                                                   stations, bmap)     # the card
+    finally:
+        gtrain.build_station_graph_data, gtrain.read_baselines_patches_batch = (
+            real_build, real_read)
+        gtrain._make_station_step = real_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = launch_counts()["head_fwd"]
+    step_ms = [s.elapsed_time(e) for s, e in steps]
+    last = graphs[-1]
+    sx, sei, sea, sy = (torch.from_numpy(a) for a in (last.x, last.edge_index,
+                                                      last.edge_attr, last.y))
+    smask = torch.from_numpy(last.node_mask.astype(np.float32))[:, None]
+    check = {name: card_vs_cpu(n, (sx, sei, sea), masked_mse, (sy, smask),
+                               shift_free=("conv.bias",))
+             for name, n in (("initial", train_station_graph(last, epochs=0)[0]),
+                             ("trained", snet))}
+    rep = [train_station_graph(last) for _ in range(2)]      # 20 steps, the same start
+    rsd = [n.state_dict() for n, _ in rep]
+    row["station"] = {
+        "stations": len(stations), "directed_edges": len(bmap), "wall_s": wall,
+        "rebuilds": rebuilds, "k3_launches": k3, "steps": len(slosses),
+        "ms_per_step_min_median_max": [min(step_ms), statistics.median(step_ms),
+                                       max(step_ms)],
+        "losses": slosses,
+        "mean_first_last_20": [float(np.mean(slosses[:20])), float(np.mean(slosses[-20:]))],
+        "repeat": {"bit_identical": rep[0][1] == rep[1][1]
+                   and all(torch.equal(rsd[0][k], rsd[1][k]) for k in rsd[0]),
+                   "losses_rel": max(abs(a - b) / abs(b) for a, b in zip(rep[0][1], rep[1][1])),
+                   # conv.bias has a gradient of rounding noise alone, which Adam's
+                   # normalised step turns into steps of lr: it is apart by itself
+                   "weights_rel": _state_distance(
+                       *({k: v for k, v in sd.items() if k != "conv.bias"} for sd in rsd)),
+                   "bias_rel": rel_err(rsd[0]["conv.bias"], rsd[1]["conv.bias"])},
+        "card_vs_cpu": check, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    S = row["station"]
+    per_rebuild = math.ceil(nbase / 16)
+    if (len(stations), len(bmap)) != (nstations, nstations * (nstations - 1)):
+        bad.append(f"station maps: {len(stations)} stations, {len(bmap)} edges")
+    for r in rebuilds:
+        if (r["nodes"], r["masked_in"], r["edges"], r["k3_launches"]) != (
+                nstations, nstations, len(bmap), per_rebuild):
+            bad.append(f"a station rebuild: {r}")
+    if len(rebuilds) != 5 or k3 != 5 * per_rebuild:
+        bad.append(f"{len(rebuilds)} rebuilds, K3 {k3} (expected 5, {5 * per_rebuild})")
+    if (len(slosses) != 100 or not all(math.isfinite(v) for v in slosses)
+            or not S["mean_first_last_20"][1] < S["mean_first_last_20"][0]):
+        bad.append(f"the station losses: {len(slosses)}, {S['mean_first_last_20']}")
+    if not all(map(within_graph_gate, check.values())):
+        bad.append(f"StationGraphNet on the card against the CPU: {check}")
+
+    # the CLI, in this process, on the eval extract
+    ns_eval = EVAL_STATIONS
+    nb_eval = ns_eval * (ns_eval + 1) // 2
+    want = {"line": (["--epochs", "20"],
+                     rf"line graph: {nb_eval} nodes, {line_edges(ns_eval)} edges; "
+                     r"loss (\S+) -> (\S+)", math.ceil(nb_eval / 8)),
+            "station": (["--epochs", "2", "--steps-per-graph", "5"],
+                        rf"station graph: {ns_eval} stations, 2 rebuilt graphs x 5 steps; "
+                        r"loss (\S+) -> (\S+)", 2 * math.ceil(nb_eval / 16))}
+    real_scan = data_mod.scan_files
+    data_mod.scan_files = lambda *a, **k: ([eval_tree], ["0"])
+    row["cli"] = {}
+    try:
+        for kind, (extra, pattern, k3_want) in want.items():
+            out = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli.main(["graph", kind, "--data-dir", "in-memory", "--ckpt", ckpt, *extra])
+            torch.cuda.synchronize()
+            lines = out.getvalue().strip().splitlines()
+            row["cli"][kind] = {"argv_extra": extra, "lines": lines,
+                                "s": time.perf_counter() - t0,
+                                "k3_launches": launch_counts()["head_fwd"]}
+            m = re.fullmatch(pattern, lines[-1]) if len(lines) == 1 else None
+            if (not m or not all(math.isfinite(float(v)) for v in m.groups())
+                    or row["cli"][kind]["k3_launches"] != k3_want):
+                bad.append(f"cli graph {kind}: {row['cli'][kind]} (K3 {k3_want})")
+    finally:
+        data_mod.scan_files = real_scan
+    row["scan_files_restored"] = data_mod.scan_files is real_scan
+    emit(row)
+    if not row["scan_files_restored"]:
+        bad.append("scan_files not restored")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2142,13 +2510,14 @@ def main() -> int:
     timed("agree_lbfgs", agree_lbfgs_phase, dev, tree)
 
     def from_checkpoint(tmpdir):
-        """Train, cut and resume (phase 13), then evaluate (14) and export (15) the
-        resumed run's final checkpoint."""
+        """Train, cut and resume (phase 13), then evaluate (14), export (15) and build
+        and train the graph networks from (19) the resumed run's final checkpoint."""
         ckpt = timed("resume", resume_phase, tree, tmpdir)
         model, evals = timed("eval", eval_phase, eval_tree, ckpt)
-        return evals, timed("export", export_phase, model, eval_tree)
+        export = timed("export", export_phase, model, eval_tree)
+        return evals, export, timed("graph", graph_phase, model, eval_tree, ckpt)
 
-    evals, export = in_tmpdir(from_checkpoint)
+    evals, export, graph = in_tmpdir(from_checkpoint)
     cli_row = timed("cli", in_tmpdir, lambda d: cli_phase(tree, d))
     timed("native_decode", native_decode_phase, tree, eval_tree)
     timed("rica", in_tmpdir, lambda d: rica_phase(tree, d))
@@ -2180,6 +2549,7 @@ def main() -> int:
         if counter == "head_fwd":
             k["launches_export"] = [export[f"batch_{n}"]["k3_launches"] for n in (35, 96)]
             k["launches_cli_export"] = cli_row["export"]["k3_launches"]
+            k["launches_graph"] = {n: graph[n]["k3_launches"] for n in ("line", "station")}
         k["status"] = "ported, held against its plain version"
     emit({"kernels": kernels, "still_to_port": []})
     print(card(), flush=True)

@@ -9,11 +9,12 @@ subcommands, flags, defaults and printed lines over ``lshm_tpu_torch``.
            --net-f netF.model --khm khm.model --out checkpoints/
     python -m lshm_tpu_torch.cli export --ckpt checkpoints/ --out lshm_forward.pt2
     python -m lshm_tpu_torch.cli rica --data-dir data/ --out rica_out/
+    python -m lshm_tpu_torch.cli graph station --data-dir data/ --ckpt checkpoints/
 
-Training, evaluation, export and RICA run on the card; ``LSHM_PLATFORM=cpu`` runs them
-on the CPU instead (any other value is an error).  ``graph``, ``bench`` and the
-multi-host flags keep JAX's flags and exit non-zero naming the ROADMAP item that ports
-them.  Every import of torch and of the port's modules happens inside a command, so
+Training, evaluation, export, RICA and the graph networks run on the card;
+``LSHM_PLATFORM=cpu`` runs them on the CPU instead (any other value is an error).
+``bench`` and the multi-host flags keep JAX's flags and exit non-zero naming the ROADMAP
+item that ports them.  Every import of torch and of the port's modules happens inside a command, so
 ``--help`` loads neither.
 """
 
@@ -175,6 +176,61 @@ def cmd_demo(args):
     print(f"wrote {args.out}")
 
 
+def cmd_graph(args):
+    """Train a GNN classifier over the learned latents, the CLI form of the reference's
+    train_graph.py (line graph) / train_graph_stat.py (station graph)."""
+    from lshm_tpu_torch.data import read_metadata, scan_files
+    from lshm_tpu_torch.graph import (
+        build_line_graph_data,
+        build_station_graph_data,
+        draw_graph,
+        station_graph_maps,
+        train_line_graph,
+        train_station_graph_epochs,
+    )
+
+    cfg = _build_config(args)
+    t = _loaded_trainer(cfg, args.ckpt)
+    files, saps = scan_files(cfg.data.data_dir, cfg.data.file_pattern)
+    if not files:
+        sys.exit(f"no valid H5 data under {cfg.data.data_dir!r}")
+    idx = args.sap_index % len(files)
+    shape = dict(patch_size=cfg.data.patch_size, num_channels=cfg.data.num_channels,
+                 order=cfg.model.khm_order, device=t.device)
+
+    # a station "epoch" is a full graph rebuild (SAP read + forward sweep), far more
+    # costly than a line-graph Adam epoch, so the defaults differ per kind
+    if args.epochs is None:
+        args.epochs = 200 if args.kind == "line" else 5
+
+    if args.kind == "line":
+        data = build_line_graph_data(t.model, files[idx], saps[idx], **shape)
+        if args.plot:
+            print(f"wrote {draw_graph(data, args.plot, title='baseline line graph')}")
+        _, losses = train_line_graph(data, hidden=args.hidden, epochs=args.epochs,
+                                     device=t.device)
+        print(f"line graph: {data.x.shape[0]} nodes, "
+              f"{data.edge_index.shape[1]} edges; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    else:
+        baselines_per_sap = [
+            read_metadata(f, s, give_baselines=True)[0] for f, s in zip(files, saps)
+        ]
+        stations, bmap = station_graph_maps(baselines_per_sap)
+        if args.plot:
+            data = build_station_graph_data(t.model, files[idx], saps[idx], stations, bmap,
+                                            **shape)
+            print(f"wrote {draw_graph(data, args.plot, title='station graph', directed=True)}")
+        # per-epoch stochastic rebuild: each epoch draws a random SAP and a fresh
+        # random patch per baseline (reference: src/train_graph_stat.py:161-268)
+        _, losses = train_station_graph_epochs(
+            t.model, files, saps, stations, bmap,
+            epochs=args.epochs, steps_per_graph=args.steps_per_graph, **shape,
+        )
+        print(f"station graph: {len(stations)} stations, {args.epochs} rebuilt "
+              f"graphs x {args.steps_per_graph} steps; "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+
 def cmd_rica(args):
     """RICA linear dictionary learning over spectrogram patches, the CLI form of the
     reference's rica_lofar.py script (reference: src/rica_lofar.py:44-104): per
@@ -287,8 +343,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-rica", action="store_true")
     p.set_defaults(fn=cmd_import_torch)
 
-    p = sub.add_parser("graph", help="train a GNN over learned latents "
-                                     "(not ported: ROADMAP A8)")
+    p = sub.add_parser("graph", help="train a GNN over learned latents")
     p.add_argument("kind", choices=["line", "station"])
     p.add_argument("--data-dir", required=True)
     p.add_argument("--ckpt", required=True)
@@ -299,7 +354,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden", type=int, default=4)
     p.add_argument("--plot", default=None, metavar="PNG")
     _add_set(p)
-    p.set_defaults(fn=_not_ported("the graph subcommand", "A8, graphs"))
+    p.set_defaults(fn=cmd_graph)
 
     p = sub.add_parser("demo", help="render a synthetic fringe spectrogram PNG")
     p.add_argument("--out", default="fringe.png")

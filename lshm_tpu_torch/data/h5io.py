@@ -103,11 +103,15 @@ def scan_files(pathname: str, pattern: str = "L*.MS_extract.h5",
     return file_list, sap_list
 
 
-def read_metadata(source: Source, sap: str) -> tuple:
-    """Visibility shape (nbase, ntime, nfreq, npol, reim)
-    (reference: src/lofar_tools.py:410-426)."""
+def read_metadata(source: Source, sap: str, give_baselines: bool = False):
+    """Visibility shape (nbase, ntime, nfreq, npol, reim); with ``give_baselines``,
+    ``(baselines [nbase, 2], shape)`` (reference: src/lofar_tools.py:410-426)."""
     with _open(source) as f:
-        return tuple(f["measurement"]["saps"][sap]["visibilities"].shape)
+        g = f["measurement"]["saps"][sap]
+        shape = tuple(g["visibilities"].shape)
+        if give_baselines:
+            return np.asarray(g["baselines"][...]), shape
+        return shape
 
 
 def compute_uv(source: Source, sap: str, baseline_ids: Sequence[int]) -> np.ndarray:

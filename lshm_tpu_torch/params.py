@@ -3,7 +3,9 @@
 The port stores weights in PyTorch's own layouts, which are also the reference
 implementation's: OIHW/OIW convolutions, IOHW/IOW transposed convolutions, ``[out, in]``
 Linear weights, and a (c, h, w) bottleneck flatten.  ``from_flax`` and ``to_flax`` are
-exact inverses (pure transposes, flips and permutations), on numpy arrays.
+exact inverses (pure transposes, flips and permutations), on numpy arrays;
+``gnn_from_flax`` and ``gnn_to_flax`` are the same for the graph networks
+(``lshm_tpu_torch/graph/gnn.py``).
 
 Layout mapping (the one of ``lshm_tpu/utils/torch_import.py``, kept here as a copy so
 that the port imports nothing of the JAX package):
@@ -127,3 +129,58 @@ def to_flax(state_dict: Mapping) -> dict:
             inner[name] = _ae_to_flax(state_dict, name, ndim)
     inner["khm"] = {"M": _np(state_dict["khm.M"])}
     return {"params": inner}
+
+
+# ------------------------------------------------------------------ graph networks
+#
+# LineGraphNet:    GCNConv_{0,1}/{Dense_0/kernel, bias}  <->  conv{0,1}.{lin.weight, bias}
+# StationGraphNet: EdgeConditionedConv_0/Dense_0 .. Dense_{n-1} (the edge MLP's n hidden
+#                  layers), Dense_n (W_e), Dense_{n+1} (the root, no bias), bias
+#                  <->  conv.edge_mlp.{i}, conv.edge_out, conv.root.weight, conv.bias
+
+def gnn_from_flax(params: Mapping) -> dict[str, np.ndarray]:
+    """Flax ``LineGraphNet`` or ``StationGraphNet`` params (with or without the outer
+    ``"params"`` key) -> the port's state_dict of the same net, as numpy arrays."""
+    p = params["params"] if "params" in params else params
+    out: dict[str, np.ndarray] = {}
+
+    def dense(d: Mapping, name: str) -> None:
+        out[f"{name}.weight"] = _np(d["kernel"]).T
+        if "bias" in d:
+            out[f"{name}.bias"] = _np(d["bias"])
+
+    if "GCNConv_0" in p:
+        for i in (0, 1):
+            dense(p[f"GCNConv_{i}"]["Dense_0"], f"conv{i}.lin")
+            out[f"conv{i}.bias"] = _np(p[f"GCNConv_{i}"]["bias"])
+    else:
+        c = p["EdgeConditionedConv_0"]
+        n = sum(k.startswith("Dense_") for k in c) - 2
+        for i in range(n):
+            dense(c[f"Dense_{i}"], f"conv.edge_mlp.{i}")
+        dense(c[f"Dense_{n}"], "conv.edge_out")
+        dense(c[f"Dense_{n + 1}"], "conv.root")
+        out["conv.bias"] = _np(c["bias"])
+    return {k: np.array(v, order="C") for k, v in out.items()}
+
+
+def gnn_to_flax(state_dict: Mapping) -> dict:
+    """The port's ``LineGraphNet`` or ``StationGraphNet`` state_dict -> Flax params
+    ``{"params": {...}}``."""
+    g = lambda name: _np(state_dict[name])
+
+    def dense(name: str) -> dict:
+        d = {"kernel": np.array(g(f"{name}.weight").T, order="C")}
+        if f"{name}.bias" in state_dict:
+            d["bias"] = g(f"{name}.bias")
+        return d
+
+    if "conv0.lin.weight" in state_dict:
+        return {"params": {f"GCNConv_{i}": {"Dense_0": dense(f"conv{i}.lin"),
+                                            "bias": g(f"conv{i}.bias")} for i in (0, 1)}}
+    n = sum(k.startswith("conv.edge_mlp.") and k.endswith(".weight") for k in state_dict)
+    c = {f"Dense_{i}": dense(f"conv.edge_mlp.{i}") for i in range(n)}
+    c[f"Dense_{n}"] = dense("conv.edge_out")
+    c[f"Dense_{n + 1}"] = dense("conv.root")
+    c["bias"] = g("conv.bias")
+    return {"params": {"EdgeConditionedConv_0": c}}

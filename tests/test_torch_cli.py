@@ -218,8 +218,22 @@ def test_each_subcommand_lists_jax_options(sub, capsys):
     assert want <= _help(cli.main, sub, capsys)
 
 
+@pytest.mark.parametrize("kind", ["line", "station"])
+def test_graph_runs_on_the_cpu(trained, kind, capsys):
+    """``graph`` (ROADMAP A8) is ported: two epochs over the trained checkpoint print
+    JAX's result line with finite losses (tests/test_torch_graph_e2e.py holds the
+    graphs and losses to JAX's)."""
+    _, data, ckpt = trained
+    cli.main(["graph", kind, "--data-dir", data, "--ckpt", ckpt, *SMALL, "--epochs", "2",
+              "--steps-per-graph", "3"])
+    out = capsys.readouterr().out.strip()
+    want = (r"line graph: 10 nodes, 58 edges" if kind == "line" else
+            r"station graph: 4 stations, 2 rebuilt graphs x 3 steps")
+    m = re.fullmatch(want + r"; loss (\S+) -> (\S+)", out)
+    assert m and all(np.isfinite(float(v)) for v in m.groups()), out
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["graph", "line", "--data-dir", "d", "--ckpt", "c"], "A8"),
     (["bench"], "C.8"),
     (["train", "--data-dir", "d", "--num-processes", "2"], "A9"),
 ])

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX package (nor
-sklearn, matplotlib or PIL at import: the functions that draw import them), names no
-file of the JAX package's native decoder, its entry points refuse to fall back to the
-CPU, its kernel wrappers refuse inputs the kernels do not take, unported config fields
-and options raise, and chip_smoke.py fails without a card."""
+sklearn, matplotlib, PIL or networkx at import: the functions that draw import them),
+names no file of the JAX package's native decoder, its entry points refuse to fall back
+to the CPU, its kernel wrappers refuse inputs the kernels do not take, unported config
+fields and options raise, and chip_smoke.py fails without a card."""
 
 import ast
 import dataclasses
@@ -29,9 +29,10 @@ for m in pkgutil.walk_packages(lshm_tpu_torch.__path__, "lshm_tpu_torch."):
 bad = [k for k, m in sys.modules.items() if m is not None and (
        k == "lshm_tpu" or k.startswith("lshm_tpu.")
        or k.split(".")[0] in ("jax", "flax", "optax", "orbax", "sklearn", "matplotlib",
-                              "PIL"))]
+                              "PIL", "networkx"))]
 assert not bad, bad
-for name in ("lshm_tpu_torch.cli", "lshm_tpu_torch.data.device_decode"):
+for name in ("lshm_tpu_torch.cli", "lshm_tpu_torch.data.device_decode",
+             "lshm_tpu_torch.graph"):
     assert name in sys.modules, name
 print("imported", len([k for k in sys.modules if k.startswith("lshm_tpu_torch")]))
 """
