@@ -148,9 +148,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 then cli.main(["graph", "line"|"station", ...]) on the eval extract;
                 build seconds, each rebuild's read+decode and rest, ms per line epoch and
                 per station step (CUDA events), peak memory
+  20. data_parallel   train/parallel.py and train/distributed.py in child processes
+                (this process never holds a process group; a child that fails or
+                outlives its timeout fails the phase): (a) a NCCL group of one rank, one
+                full_khm minibatch (420 patches, 12 groups, 10 ADMM iterations) from one
+                state through the plain Adam step, the data-parallel step and the fused
+                step (plain, data-parallel, fused, fused, data-parallel, plain): the
+                data-parallel step within twice the card's run-to-run distance of the
+                plain one (bit for bit where that is 0), K1-K4 10, 10, 20, 10, 11
+                all-reduces (10 of the 1,725,716 gradients, one of the metrics); the
+                fused step's metrics 1e-4 from the unfused, K3 10 against 20; ms per
+                ADMM iteration of each and the all-reduce's ms alone; (b) two gloo ranks
+                sharing cuda:0, each a full-width Trainer (3 minibatches x 10 ADMM
+                iterations of 12 baselines x 35 patches on its own sampler stream, the
+                host decode through the native decoder, a checkpoint per minibatch) on a
+                copy of the package whose _build/ starts empty (both ranks build at
+                once): SHA-256 of the parameters and the losses equal on both ranks,
+                K1-K4 30, 30, 60, 30 per rank, rank 0's last checkpoint loaded bit for
+                bit by a fresh Trainer on each rank; then this process steps the two
+                ranks' first minibatches concatenated (840 patches, 24 groups) from the
+                same initial parameters: per-term metrics within 1e-4 and the parameters
+                after the first minibatch within JAX's mesh gate (atol 2e-5, rtol 1e-4);
+                ms per ADMM iteration, peak memory and the all-reduce's ms per rank (two
+                ranks share the card's SMs: not a scaling figure)
 Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15, the CLI's train,
-resume and exported call, 18, and 19's graph builds, trainings and CLI calls) is driven
-with the launch counts set to 0 just before it and read just after.  Then a seconds line, the kernels table as one JSON line, the
+resume and exported call, 18, 19's graph builds, trainings and CLI calls, and 20's
+steps and trainers) is driven with the launch counts set to 0 just before it and read
+just after.  Then a seconds line, the kernels table as one JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}} as the last line.
 Without a CUDA device it exits 2 before printing any result.  It imports nothing of JAX
 or of the JAX package.
@@ -2445,11 +2469,318 @@ def graph_phase(model, eval_tree, ckpt: str, nstations: int = LOFAR_STATIONS,
     return row
 
 
+# ----------------------------------------------------------------------- phase 20
+
+DP_TIMEOUT = 420               # seconds for the ranks of one data-parallel run
+DP_GATE = dict(atol=2e-5, rtol=1e-4)   # JAX's mesh against unsharded Trainer gate
+                                       # (tests/test_trainer.py:192-208)
+
+
+def _dp_argv(mode: str, root: str, *args: str) -> list[str]:
+    """The command of one rank of phase 20: this script in child ``mode``, importing
+    ``lshm_tpu_torch`` from the directory ``root``."""
+    return [sys.executable, os.path.abspath(__file__), "--data-parallel", mode, root,
+            *args]
+
+
+def _loss_weights(cfg):
+    from lshm_tpu_torch.train import LossWeights
+
+    return LossWeights(alpha=cfg.loss.alpha, beta=cfg.loss.beta, gamma=cfg.loss.gamma,
+                       rho=cfg.loss.rho, rica_lambda=cfg.loss.rica_lambda)
+
+
+def dp_one_rank_child(tmpdir: str, backend: str) -> None:
+    """Phase 20 (a), in a child process: a process group of one rank (NCCL) on the
+    card; one full-width full_khm minibatch (420 patches, 12 groups, 10 ADMM iterations)
+    from the same initial state through the plain Adam step, the data-parallel step and
+    the fused step, in the order plain, data-parallel, fused, fused, data-parallel,
+    plain; ms, launches, metrics and parameters of each, the all-reduce's values, and
+    its time alone on the gradient buffer.  Writes one_rank.pt."""
+    import torch.distributed as dist
+
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.device import use_exact_float32
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import init_train_state, make_train_step
+    from lshm_tpu_torch.train.distributed import TIMEOUT, local_card
+    from lshm_tpu_torch.train.parallel import AllReduceMean, make_data_parallel_step
+
+    dev = local_card()
+    torch.cuda.set_device(dev)
+    use_exact_float32()
+    dist.init_process_group(backend, init_method=f"file://{tmpdir}/store_one",
+                            world_size=1, rank=0, timeout=TIMEOUT)
+    try:
+        tree = torch.load(os.path.join(tmpdir, "tree.pt"), weights_only=False)
+        cfg = flagship_config(tmpdir)
+        sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+        sampler.reseed(0)
+        mb = sampler.sample()
+        x, uv = (torch.from_numpy(a).to(dev) for a in (mb.x, mb.uv))
+        w, nb, nadmm = _loss_weights(cfg), mb.num_baselines, cfg.train.admm_iters
+        mean = AllReduceMean()
+        steps = {"plain": make_train_step(cfg, nb),
+                 "data_parallel": make_data_parallel_step(cfg, nb, mean),
+                 "fused": make_train_step(cfg, nb, fused=True)}
+        steps["plain"](init_train_state(cfg, dev), x, uv, w)     # warm-up
+        mean([torch.zeros(1, device=dev)])     # NCCL builds its communicator here
+        torch.cuda.synchronize()
+        runs: dict[str, list] = {name: [] for name in steps}
+        for name in ("plain", "data_parallel", "fused", "fused", "data_parallel", "plain"):
+            state = init_train_state(cfg, dev)                 # the seed's initial state
+            calls, values = mean.calls, mean.values
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = steps[name](state, x, uv, w)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / nadmm
+            runs[name].append({
+                "ms_per_admm_iter": ms, "launches": launch_counts(),
+                "allreduce_calls": mean.calls - calls,
+                "allreduce_values": mean.values - values,
+                "metrics": {k: v.cpu() for k, v in metrics.items()},
+                "params": {k: v.detach().clone() for k, v in state.model.state_dict().items()}})
+        grads = [p.grad for g in state.opt.param_groups for p in g["params"]]
+        n_grad = sum(g.numel() for g in grads)
+        allreduce_ms = host_ms(lambda: mean(grads))
+        torch.save({"runs": runs, "n_grad": n_grad, "allreduce_ms": allreduce_ms,
+                    "patches": x.shape[0], "groups": nb,
+                    "backend": dist.get_backend(), "world": dist.get_world_size()},
+                   os.path.join(tmpdir, "one_rank.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks_child(tmpdir: str) -> None:
+    """Phase 20 (b), in one of two child processes sharing the card, on a copy of the
+    package whose build directory starts empty (both ranks build the kernels and the
+    native decoder at once): a gloo group of two; a full-width Trainer on full_khm, 3
+    minibatches x 10 ADMM iterations of 12 baselines x 35 patches on the rank's own
+    sampler stream, decoding on the host (natively), a checkpoint after each minibatch;
+    then a fresh Trainer loads the last one.  Writes two_ranks_<rank>.json and the
+    rank's first minibatch."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from lshm_tpu_torch import native
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import _build, launch_counts, reset_launches
+    from lshm_tpu_torch.train import Trainer
+    from lshm_tpu_torch.train.distributed import init_distributed
+    from lshm_tpu_torch.utils import MetricLogger
+
+    world = init_distributed(f"file://{tmpdir}/store_two", backend="gloo")
+    rank = dist.get_rank()
+    try:
+        t0 = time.perf_counter()
+        built = _build.build_all()
+        native.library()
+        build_s = time.perf_counter() - t0
+        tree = torch.load(os.path.join(tmpdir, "tree.pt"), weights_only=False)
+        ckpt = os.path.join(tmpdir, "dp_ckpt")
+        cfg = flagship_config(ckpt)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 save_every_iters=1))
+        sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+        twin = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+        twin.reseed(0)                                 # as Trainer.run's first epoch
+        first = twin.sample()
+        np.savez(os.path.join(tmpdir, f"first_{rank}.npz"), x=first.x, uv=first.uv,
+                 num_baselines=first.num_baselines)
+        logger = MetricLogger(echo=False)
+        logged = []
+        log_step = logger.log_step
+
+        def recording(epoch, it, metrics, patches=None):
+            logged.append({k: v.cpu().tolist() for k, v in metrics.items()})
+            return log_step(epoch, it, metrics, patches=patches)
+
+        logger.log_step = recording
+        trainer = Trainer(cfg, logger=logger)         # device None: cuda:<LOCAL_RANK>
+        sources = []
+        pick = trainer._source
+        trainer._source = lambda s: sources.append(pick(s)) or sources[-1]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = trainer.run(sampler)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        hist = logger.history
+        steady_s = (hist[-1]["t"] - hist[0]["t"]) / (len(hist) - 1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loaded = Trainer(cfg, logger=MetricLogger(echo=False))
+        loaded.load(ckpt)
+        buf = torch.zeros(sum(p.numel() for p in trainer.model.parameters()),
+                          device=trainer.device)
+        allreduce_ms = host_ms(lambda: trainer._mean([buf]))
+        row = {"rank": rank, "world": world, "world_size": trainer.world_size,
+               "device": str(trainer.device), "process_index": sampler._process_index,
+               "prefetcher": type(sources[0]).__name__,
+               "host_decoder": "native" if sampler.use_native else "numpy",
+               "built": built, "build_s": build_s, "summary": summary,
+               "losses": [h["loss"] for h in hist], "patches": [h["patches"] for h in hist],
+               "first_metrics": logged[0], "launches": counts, "wall_s": wall,
+               "ms_per_admm_iter": steady_s / cfg.train.admm_iters * 1e3,
+               "peak_mem_gb": peak, "digest": digest(trainer.model.state_dict().values()),
+               "loaded_digest": digest(loaded.model.state_dict().values()),
+               "loaded_step": loaded.state.step, "allreduce_ms": allreduce_ms,
+               "allreduce_values": buf.numel(), "checkpoints": sorted(os.listdir(ckpt))}
+        with open(os.path.join(tmpdir, f"two_ranks_{rank}.json"), "w") as f:
+            json.dump(row, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_phase(dev, tree, tmpdir: str) -> dict:
+    """Phase 20: the data-parallel step and Trainer held to the single-process results
+    on the card with their collectives running, in child processes (this process never
+    holds a process group): (a) one NCCL rank, (b) two gloo ranks sharing the card, then
+    one process stepping the two ranks' first minibatches concatenated.  Two ranks on
+    one card share its SMs: no number here is a scaling figure.  Returns the launch
+    counts of (a)'s data-parallel and fused steps and of (b)'s rank 0."""
+    import shutil
+
+    import numpy as np
+
+    from lshm_tpu_torch.tools.ranks import check_ranks, run_ranks
+    from lshm_tpu_torch.train import init_train_state, make_train_step
+    from lshm_tpu_torch.utils import restore_checkpoint
+
+    from lshm_tpu_torch.device import use_exact_float32
+
+    use_exact_float32()             # the single-process comparison below: full float32
+    torch.cuda.empty_cache()        # the children share the card with this process
+    torch.save(tree, os.path.join(tmpdir, "tree.pt"))    # the training extract, for the ranks
+
+    # (a) one NCCL rank: plain, data-parallel and fused steps from one state
+    here = os.path.dirname(os.path.abspath(__file__))
+    check_ranks(run_ranks(_dp_argv("one_rank", here, tmpdir, "nccl"), 1, DP_TIMEOUT))
+    one = torch.load(os.path.join(tmpdir, "one_rank.pt"), weights_only=False)
+    runs = one["runs"]
+    nadmm = len(runs["plain"][0]["metrics"]["loss"])
+
+    def dist_(a, b):
+        return {"metrics": max(rel_err(a["metrics"][k], b["metrics"][k])
+                               for k in b["metrics"]),
+                "params": _state_distance(a["params"], b["params"])}
+
+    plain, dp, fused = runs["plain"][0], runs["data_parallel"][0], runs["fused"][0]
+    run_to_run = {k: max(dist_(runs[n][1], runs[n][0])[k] for n in ("plain", "data_parallel"))
+                  for k in ("metrics", "params")}
+    dp_gap = dist_(dp, plain)
+    fused_gap = {k: rel_err(fused["metrics"][k], plain["metrics"][k])
+                 for k in plain["metrics"]}
+    grad_bytes = one["n_grad"] * 4
+    row_a = {"phase": "data_parallel_one_rank", "backend": one["backend"],
+             "world": one["world"], "preset": "full_khm", "patches": one["patches"],
+             "groups": one["groups"],
+             "admm_iters": nadmm,
+             "ms_per_admm_iter": {n: [r["ms_per_admm_iter"] for r in rs]
+                                  for n, rs in runs.items()},
+             "launches": {n: rs[0]["launches"] for n, rs in runs.items()},
+             "allreduce_calls_per_minibatch": dp["allreduce_calls"],
+             "allreduce_values_per_minibatch": dp["allreduce_values"],
+             "grad_values_per_admm_iter": one["n_grad"],
+             "grad_bytes_per_admm_iter": grad_bytes,
+             "allreduce_ms_grad_buffer": one["allreduce_ms"],
+             "run_to_run_distance": run_to_run, "data_parallel_vs_plain": dp_gap,
+             "fused_vs_unfused_metric_rel_err": fused_gap}
+    emit(row_a)
+    for k in ("metrics", "params"):
+        if dp_gap[k] != 0.0 if run_to_run[k] == 0.0 else dp_gap[k] > 2 * run_to_run[k]:
+            raise AssertionError(f"the one-rank data-parallel step's {k} lie {dp_gap[k]} "
+                                 f"from the plain step's (run to run {run_to_run[k]})")
+    adam = {"khm_fwd": nadmm, "khm_bwd": nadmm, "head_fwd": 2 * nadmm, "head_bwd": nadmm}
+    expect_launches(dp["launches"], adam, "one-rank data-parallel step")
+    expect_launches(fused["launches"], {**adam, "head_fwd": nadmm}, "fused step")
+    if dp["allreduce_calls"] != nadmm + 1 or dp["allreduce_values"] != (
+            nadmm * one["n_grad"] + len(dp["metrics"]) * nadmm):
+        raise AssertionError(f"expected {nadmm} gradient all-reduces and one of the "
+                             f"metrics: {row_a}")
+    if max(fused_gap.values()) > 1e-4:
+        raise AssertionError(f"the fused step's metrics are off the unfused: {fused_gap}")
+
+    # (b) two gloo ranks on one card, each a full-width Trainer, from a copy of the
+    # package whose build directory is empty
+    root = os.path.join(tmpdir, "copy")
+    shutil.copytree(os.path.join(here, "lshm_tpu_torch"), os.path.join(root, "lshm_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    check_ranks(run_ranks(_dp_argv("two_ranks", root, tmpdir), 2, DP_TIMEOUT,
+                          local_ranks=[0, 0]))
+    r0, r1 = (json.load(open(os.path.join(tmpdir, f"two_ranks_{r}.json")))
+              for r in range(2))
+    built = sorted(os.listdir(os.path.join(root, "lshm_tpu_torch", "_build")))
+
+    # one process on the two ranks' first minibatches concatenated (840 patches, 24
+    # groups), from the same initial parameters
+    firsts = [np.load(os.path.join(tmpdir, f"first_{r}.npz")) for r in range(2)]
+    x = torch.from_numpy(np.concatenate([f["x"] for f in firsts])).to(dev)
+    uv = torch.from_numpy(np.concatenate([f["uv"] for f in firsts])).to(dev)
+    groups = int(sum(int(f["num_baselines"]) for f in firsts))
+    cfg = flagship_config(tmpdir)
+    state, metrics = make_train_step(cfg, groups)(init_train_state(cfg, dev), x, uv,
+                                                  _loss_weights(cfg))
+    ranked = {k: torch.tensor(v) for k, v in r0["first_metrics"].items()}
+    metric_gap = {k: rel_err(ranked[k], metrics[k].cpu()) for k in metrics}
+    after_first = restore_checkpoint(os.path.join(tmpdir, "dp_ckpt"), 1)[0]["params"]
+    single = state.model.state_dict()
+    excess = max(float(((after_first[k].to(dev) - single[k]).abs()
+                        - (DP_GATE["atol"] + DP_GATE["rtol"] * single[k].abs())).max())
+                 for k in single)
+    param_dist = _state_distance({k: v.to(dev) for k, v in after_first.items()}, single)
+    expected = {"khm_fwd": 3 * nadmm, "khm_bwd": 3 * nadmm, "head_fwd": 6 * nadmm,
+                "head_bwd": 3 * nadmm}
+    row_b = {"phase": "data_parallel_two_ranks", "backend": "gloo", "card": "cuda:0 shared",
+             "note": "two ranks share one card's SMs: not a scaling figure",
+             "ranks": [{k: r[k] for k in ("rank", "device", "process_index", "prefetcher",
+                                          "host_decoder", "built", "build_s", "wall_s",
+                                          "ms_per_admm_iter", "peak_mem_gb", "allreduce_ms",
+                                          "allreduce_values", "launches", "patches")}
+                       for r in (r0, r1)],
+             "build_dir": built, "digests": [r0["digest"], r1["digest"]],
+             "loaded_digests": [r0["loaded_digest"], r1["loaded_digest"]],
+             "losses": r0["losses"], "checkpoints": r0["checkpoints"],
+             "single_process_840": {"metric_rel_err": metric_gap,
+                                    "param_rel_distance": param_dist,
+                                    "gate": DP_GATE, "worst_excess_over_gate": excess}}
+    emit(row_b)
+    for r in (r0, r1):
+        expect_launches(r["launches"], expected, f"rank {r['rank']} trainer")
+        if (r["world"], r["world_size"], r["process_index"]) != (2, 2, r["rank"]):
+            raise AssertionError(f"rank {r['rank']} did not train data-parallel: {r}")
+        if r["prefetcher"] != "PrefetchIterator" or r["host_decoder"] != "native":
+            raise AssertionError(f"rank {r['rank']} did not decode on the host natively")
+    if r0["digest"] != r1["digest"] or r0["losses"] != r1["losses"]:
+        raise AssertionError("the two ranks' parameters or losses differ")
+    if not r0["loaded_digest"] == r1["loaded_digest"] == r0["digest"] or \
+            r0["loaded_step"] != 3:
+        raise AssertionError("rank 0's checkpoint did not load bit for bit on both ranks")
+    if max(metric_gap.values()) > 1e-4 or excess > 0.0:
+        raise AssertionError("the two ranks' first minibatch disagrees with one process "
+                             f"on the concatenated batch: {row_b['single_process_840']}")
+    return {"data_parallel": dp["launches"], "fused": fused["launches"],
+            "two_ranks": r0["launches"]}
+
+
+def data_parallel_child(mode: str, root: str, *args: str) -> int:
+    """The entry of a child of phase 20 (``_dp_argv``)."""
+    sys.path.insert(0, root)
+    {"one_rank": dp_one_rank_child, "two_ranks": dp_two_ranks_child}[mode](*args)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--data-parallel"]:   # a rank of phase 20
+        return data_parallel_child(*sys.argv[2:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lshm_tpu_torch import native
     from lshm_tpu_torch.data import synth_extract
@@ -2521,6 +2852,7 @@ def main() -> int:
     cli_row = timed("cli", in_tmpdir, lambda d: cli_phase(tree, d))
     timed("native_decode", native_decode_phase, tree, eval_tree)
     timed("rica", in_tmpdir, lambda d: rica_phase(tree, d))
+    dp = timed("data_parallel", in_tmpdir, lambda d: data_parallel_phase(dev, tree, d))
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2
@@ -2542,6 +2874,10 @@ def main() -> int:
         if path == "trainer":         # K1-K4 through the CLI: train, then --resume
             k["launches_cli"] = {n: cli_row[n]["launches"][counter]
                                  for n in ("train", "resume")}
+            # one minibatch of the one-rank data-parallel and fused steps; rank 0 of the
+            # two-rank Trainer (3 minibatches)
+            k["launches_data_parallel"] = {n: dp[n][counter]
+                                           for n in ("data_parallel", "fused", "two_ranks")}
         if counter in ("head_fwd", "head_fwd_bf16"):   # K3: per chunk, per exported call
             ev = evals["float32" if counter == "head_fwd" else "bfloat16_full"]
             k["launches_eval"] = {"device_decode": ev["k3_launches"],

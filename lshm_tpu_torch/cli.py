@@ -13,8 +13,11 @@ subcommands, flags, defaults and printed lines over ``lshm_tpu_torch``.
 
 Training, evaluation, export, RICA and the graph networks run on the card;
 ``LSHM_PLATFORM=cpu`` runs them on the CPU instead (any other value is an error).
-``bench`` and the multi-host flags keep JAX's flags and exit non-zero naming the ROADMAP
-item that ports them.  Every import of torch and of the port's modules happens inside a command, so
+``train`` runs data-parallel over several processes, one per card, under
+``torchrun --nproc-per-node N -m lshm_tpu_torch.cli train ...`` or with
+``--coordinator/--num-processes/--process-id`` in each process; rank 0 prints the
+metrics and writes ``--log-jsonl``.  ``bench`` keeps JAX's flags and exits non-zero
+naming the ROADMAP item that ports it.  Every import of torch and of the port's modules happens inside a command, so
 ``--help`` loads neither.
 """
 
@@ -94,19 +97,38 @@ def _loaded_trainer(cfg, ckpt: str):
 
 
 def cmd_train(args):
-    if args.coordinator or args.num_processes or args.process_id is not None:
-        _not_ported("multi-host training (--coordinator, --num-processes, --process-id)",
-                    "A9, data parallelism")(args)
+    from lshm_tpu_torch.train.distributed import init_distributed
+    from lshm_tpu_torch.train.parallel import world_and_rank
     from lshm_tpu_torch.train.trainer import Trainer
     from lshm_tpu_torch.utils.metrics import MetricLogger
 
+    device = _device()
+    try:      # the flags, else torchrun's environment; a no-op for one process
+        n = init_distributed(args.coordinator, args.num_processes, args.process_id)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    if n > 1 and not args.quiet:
+        print(f"distributed: {n} process(es)")
     cfg = _build_config(args)
-    logger = MetricLogger(jsonl_path=args.log_jsonl, echo=not args.quiet)
-    t = Trainer(cfg, device=_device(), logger=logger, profile_dir=args.profile_dir)
+    # one rank logs: the metrics are the ranks' mean, the same on each
+    lead = world_and_rank()[1] == 0
+    logger = MetricLogger(jsonl_path=args.log_jsonl if lead else None,
+                          echo=not args.quiet and lead)
+    try:
+        t = Trainer(cfg, device=device, logger=logger, profile_dir=args.profile_dir)
+    except ValueError as e:       # train.mesh_shape against the world size
+        sys.exit(f"error: {e}")
+    if t.world_size > 1 and not args.quiet:
+        print(f"data parallel: {{'{cfg.train.mesh_axes[0]}': {t.world_size}}} over "
+              f"{t.world_size} rank(s); rank {t.rank} on {t.device}")
     if args.resume:
         t.load(cfg.train.checkpoint_dir)
     summary = t.run()
     print(f"done: {summary}")
+    if n > 1:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def cmd_eval(args):
@@ -311,11 +333,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the first epoch here")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host (not ported: ROADMAP A9)")
+                   help="multi-host: rank 0's address (default: MASTER_ADDR:MASTER_PORT)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host (not ported: ROADMAP A9)")
+                   help="multi-host: number of processes (default: WORLD_SIZE)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host (not ported: ROADMAP A9)")
+                   help="multi-host: this process's rank (default: RANK)")
     _add_set(p)
     p.set_defaults(fn=cmd_train)
 

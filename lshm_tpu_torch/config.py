@@ -235,10 +235,10 @@ class TrainConfig:
                                       # is repositioned to (epoch, iter) via skip()
     log_every: int = 1
     ramp: tuple[RampStage, ...] = ()  # optional published recipe; overrides LossConfig weights
-    # parallelism: (1,) = single-device jit; any product > 1 (or -1 = all devices)
-    # builds a GSPMD data-parallel mesh and Trainer runs every step through
-    # train_step_sharded (state replicated, patch batch sharded over mesh_axes[0]).
-    # Multi-process runs always span all global devices.  CLI: --set train.mesh_shape=8
+    # parallelism: one process per card (torchrun, or the CLI's multi-host flags);
+    # a run of several processes splits the batch over every rank on mesh_axes[0]
+    # (train/parallel.py: data_parallel_layout checks this shape against the world
+    # size; every axis but the first is 1).  One process with a product > 1 raises.
     mesh_shape: tuple[int, ...] = (1,)
     mesh_axes: tuple[str, ...] = ("data",)
     precision: str = "float32"        # compute dtype for conv/matmul inputs
@@ -316,11 +316,7 @@ def check_model_supported(m: ModelConfig) -> None:
 def check_supported(cfg: Config) -> None:
     """``check_model_supported`` plus the data, optimizer and training fields."""
     check_model_supported(cfg.model)
-    t = cfg.train
-    _raise_unsupported(cfg, "", [
-        ("train.mesh_shape", tuple(t.mesh_shape) not in ((), (1,))),
-        ("train.remat", t.remat),
-    ])
+    _raise_unsupported(cfg, "", [("train.remat", cfg.train.remat)])
 
 
 def _get(root: Any, path: str) -> Any:

@@ -116,14 +116,23 @@ class MinibatchSampler:
     ``use_native``: how ``sample()`` decodes.  None means the native decoder wherever
     there is a C++ compiler (``native.available()``), else numpy; True the native
     decoder, or raise; False numpy.  A native build that fails raises here.  Both make
-    the same rng draws."""
+    the same rng draws.
+
+    ``process_index`` is folded into the rng stream, so that the ranks of a
+    data-parallel run draw disjoint minibatches.  None means this process's rank when a
+    process group of more than one rank is initialised, else 0 (JAX's default, with
+    ``jax.process_index()``)."""
 
     def __init__(self, file_list: list[Source], sap_list: list[str], cfg: DataConfig,
                  seed: int = 0,
                  augment_fn: Callable[[np.random.Generator, np.ndarray], np.ndarray] | None = None,
-                 process_index: int = 0, use_native: bool | None = None):
+                 process_index: int | None = None, use_native: bool | None = None):
         if len(file_list) != len(sap_list) or not file_list:
             raise ValueError("file_list and sap_list must be non-empty and parallel")
+        if process_index is None:
+            dist = torch.distributed
+            process_index = (dist.get_rank() if dist.is_available() and dist.is_initialized()
+                             and dist.get_world_size() > 1 else 0)
         self.file_list = file_list
         self.sap_list = sap_list
         self.cfg = cfg

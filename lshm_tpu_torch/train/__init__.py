@@ -3,6 +3,7 @@ from lshm_tpu_torch.train.objective import (
     LossWeights,
     cascade_objective,
     dual_update,
+    dual_update_from_outputs,
     loss_from_outputs,
     metrics_and_dual_update,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "LossWeights",
     "cascade_objective",
     "dual_update",
+    "dual_update_from_outputs",
     "loss_from_outputs",
     "metrics_and_dual_update",
     "active_group",

@@ -13,7 +13,8 @@
 with the Lagrange-multiplier update y_k <- y_k + rho * residual_k after each optimizer
 step, from a fresh forward pass at the new parameters (``dual_update`` for the Adam
 step; ``metrics_and_dual_update``, the port of the JAX function of that name, shares
-that forward with the metrics for the L-BFGS step).
+that forward with the metrics for the L-BFGS step; the fused Adam step takes it from
+the next objective's forward, ``dual_update_from_outputs``).
 
 The Fourier variant (outputs with ``yf_in``) has two AEs: loss0 adds the Fourier
 reconstruction ||yf_out - yf_in||^2 / numel(yf_in), loss2 is the ADMM term on the full
@@ -111,7 +112,10 @@ def cascade_objective(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
                              khm_backend=khm_backend)
 
 
-def _updated(out, x: torch.Tensor, duals: Duals, rho: float) -> Duals:
+@torch.no_grad()
+def dual_update_from_outputs(out, x: torch.Tensor, duals: Duals, rho: float) -> Duals:
+    """y_k <- y_k + rho * residual_k computed from an existing forward's outputs
+    (detached: the duals take no gradient)."""
     y1 = duals.y1 + rho * (x - out.x1)
     if out.yf_in is not None:
         return Duals(y1=y1, y2=duals.y2 + rho * (out.yf_in - out.yf_out), y3=duals.y3)
@@ -126,7 +130,7 @@ def _updated(out, x: torch.Tensor, duals: Duals, rho: float) -> Duals:
 def dual_update(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals, rho: float) -> Duals:
     """y_k <- y_k + rho * residual_k with a fresh (post-step) forward pass
     (reference: src/kharmonic_lofar.py:186-202)."""
-    return _updated(model(x, uv), x, duals, rho)
+    return dual_update_from_outputs(model(x, uv), x, duals, rho)
 
 
 @torch.no_grad()
@@ -140,4 +144,4 @@ def metrics_and_dual_update(model, x: torch.Tensor, uv: torch.Tensor, duals: Dua
     _, metrics = loss_from_outputs(out, model.khm.M, x, duals, w, num_groups,
                                    use_rica=use_rica, khm_order=khm_order,
                                    khm_backend=khm_backend)
-    return metrics, _updated(out, x, duals, w.rho)
+    return metrics, dual_update_from_outputs(out, x, duals, w.rho)

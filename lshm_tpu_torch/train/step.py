@@ -1,5 +1,5 @@
-"""The ADMM minibatch steps (port of ``lshm_tpu/train/step.py``: the unfused Adam
-``make_train_step`` and ``make_lbfgs_train_step``; reference:
+"""The ADMM minibatch steps (port of ``lshm_tpu/train/step.py``: the Adam
+``make_train_step``, unfused or fused, and ``make_lbfgs_train_step``; reference:
 src/kharmonic_lofar.py:93,115-202).
 
 One call = one minibatch = ``admm_iters`` inner iterations of {optimizer update on the
@@ -28,6 +28,7 @@ from lshm_tpu_torch.train.objective import (
     LossWeights,
     cascade_objective,
     dual_update,
+    dual_update_from_outputs,
     loss_from_outputs,
     metrics_and_dual_update,
 )
@@ -85,31 +86,58 @@ def init_train_state(cfg: Config, device: torch.device | str, group: str = "all"
     return TrainState(model=model, opt=make_optimizer(cfg, model, group))
 
 
-def make_train_step(cfg: Config, num_groups: int) -> Callable:
+def make_train_step(cfg: Config, num_groups: int, fused: bool = False,
+                    grad_mean: Callable | None = None) -> Callable:
     """(state, x, uv, weights) -> (state, metrics); ``state`` is updated in place.
-    ``num_groups`` = baselines per minibatch (the augmentation grouping)."""
+    ``num_groups`` = baselines per minibatch (the augmentation grouping).
+
+    ``fused=True`` is JAX's fused step (``lshm_tpu/train/step.py:175-201``): each ADMM
+    iteration runs one forward, takes the dual update from its outputs (skipped at
+    t = 0, where the duals are zero) and the objective's gradient from the same
+    outputs.  The trailing dual update after the last optimizer step is dropped: the
+    duals reset per minibatch, so it is unobservable.  The same math as the default,
+    with one forward (one K3 launch) per iteration instead of two.
+
+    ``grad_mean``: the data-parallel reduction (``parallel.AllReduceMean``), applied to
+    the gradients of the optimizer's parameters between ``backward`` and the update."""
     nadmm = cfg.train.admm_iters
     kw = _loss_kw(cfg)
     cast_in = _input_cast(cfg)
+
+    def update(opt, loss):
+        loss.backward()
+        if grad_mean is not None:
+            grad_mean([p.grad for g in opt.param_groups for p in g["params"]])
+        opt.step()
 
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor, w: LossWeights):
         model, opt = state.model, state.opt
         x = cast_in(x)
         duals = Duals.zeros_like(x, fourier=cfg.model.fourier_variant)
         history = []
-        for _ in range(nadmm):
+        for t in range(nadmm):
             model.zero_grad(set_to_none=True)
-            loss, metrics = cascade_objective(model, x, uv, duals, w, num_groups, **kw)
-            loss.backward()
-            opt.step()
-            duals = dual_update(model, x, uv, duals, w.rho)
+            if fused:
+                out = model(x, uv)
+                if t > 0:
+                    duals = dual_update_from_outputs(out, x, duals, w.rho)
+                loss, metrics = loss_from_outputs(out, model.khm.M, x, duals, w,
+                                                  num_groups, **kw)
+                update(opt, loss)
+            else:
+                loss, metrics = cascade_objective(model, x, uv, duals, w, num_groups, **kw)
+                update(opt, loss)
+                duals = dual_update(model, x, uv, duals, w.rho)
             history.append({k: v.detach() for k, v in metrics.items()})
         state.step += 1
-        stacked = {k: torch.stack([m[k] for m in history]) for k in history[0]} \
-            if history else {}
-        return state, stacked
+        return state, _stack(history)
 
     return train_step
+
+
+def _stack(history: list[dict]) -> dict[str, torch.Tensor]:
+    """Per-iteration metrics as [admm_iters] tensors per term."""
+    return {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
 
 
 # ------------------------------------------------------------------------- L-BFGS
@@ -143,7 +171,8 @@ def lbfgs_objective(cfg: Config, num_groups: int) -> Callable:
     return value_fn
 
 
-def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all") -> Callable:
+def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all",
+                          grad_mean: Callable | None = None) -> Callable:
     """L-BFGS minibatch step, (state, x, uv, weights) -> (state, metrics), ``state``
     updated in place: each of the ``admm_iters`` inner iterations runs one full
     ``optimizer.step(closure)`` (up to ``max_iter`` L-BFGS iterations with line search)
@@ -156,11 +185,17 @@ def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all") -> C
     them (K4 does not run in ``ae1d`` or ``khm`` epochs).  The L-BFGS state spans the
     active parameters only.  In JAX it spans every parameter and its entries for the
     frozen groups stay exactly zero, so every dot product, norm and step is the same
-    math; the sums run in another order."""
+    math; the sums run in another order.
+
+    ``grad_mean``: the data-parallel reduction (``parallel.AllReduceMean``), applied to
+    every closure evaluation: value and gradient in one call, or the value alone."""
     nadmm = cfg.train.admm_iters
     kw = _loss_kw(cfg)
     value_fn = lbfgs_objective(cfg, num_groups)
-    lbfgs_step = make_lbfgs_step(value_and_grad(value_fn), value_fn, cfg.optim.lbfgs)
+    vg_fn = value_and_grad(value_fn)
+    if grad_mean is not None:
+        value_fn, vg_fn = _mean_closures(value_fn, vg_fn, grad_mean)
+    lbfgs_step = make_lbfgs_step(vg_fn, value_fn, cfg.optim.lbfgs)
     cast_in = _input_cast(cfg)
 
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor,
@@ -182,8 +217,23 @@ def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all") -> C
                                                      **kw)
             history.append(metrics)
         state.step += 1
-        stacked = {k: torch.stack([m[k] for m in history]) for k in history[0]} \
-            if history else {}
-        return state, stacked
+        return state, _stack(history)
 
     return train_step
+
+
+def _mean_closures(value_fn: Callable, vg_fn: Callable, mean: Callable):
+    """The L-BFGS closures with their results replaced by the ranks' mean, so that
+    every rank takes the same line-search branches."""
+
+    def mean_value(*args):
+        loss = value_fn(*args).detach()
+        mean([loss])
+        return loss
+
+    def mean_vg(*args):
+        loss, grads = vg_fn(*args)
+        mean([loss, *grads.values()])
+        return loss, grads
+
+    return mean_value, mean_vg

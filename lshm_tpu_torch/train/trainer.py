@@ -8,8 +8,17 @@ model groups, a prefetching input pipeline (decoding on the card by default, see
 the one-step-delayed non-finite revert, and checkpoints with exact resume (``load``:
 parameters, optimizer state, step and the sampler position).  A switch of (optimizer
 kind, group) carries the parameters over and resets the optimizer state, as in JAX; the
-L-BFGS state persists across the minibatches of one (kind, group).  One device;
-``Trainer(cfg)`` runs on the card and raises when there is none.
+L-BFGS state persists across the minibatches of one (kind, group).  One card per
+process; ``Trainer(cfg)`` runs on the card and raises when there is none.
+
+In a process group of more than one rank (``train/distributed.py``) the trainer is
+data-parallel (``train/parallel.py``): each rank samples its own minibatches (the
+sampler folds in its rank), the state is broadcast from rank 0 whenever it is built or
+loaded, and every step reduces its gradients and metrics over the ranks, so that the
+parameters stay bit-identical.  Under data parallelism the ranks decode on the host,
+as JAX does under a mesh.  Every rank enters ``save``; rank 0 writes and the ranks
+meet at a barrier after it.  The logger logs the reduced metrics on every rank: the
+caller gives a JSONL path to one rank only (the CLI gives it to rank 0).
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from lshm_tpu_torch.data import (DeviceDecodePrefetcher, MinibatchSampler,
                                  PrefetchIterator, scan_files)
 from lshm_tpu_torch.device import resolve_device, use_exact_float32
 from lshm_tpu_torch.optim import lbfgs_init
+from lshm_tpu_torch.train import parallel
+from lshm_tpu_torch.train.distributed import local_card
 from lshm_tpu_torch.train.objective import LossWeights
 from lshm_tpu_torch.train.schedule import active_group, ramp_stage_for_epoch
 from lshm_tpu_torch.train.step import (
@@ -40,14 +51,22 @@ from lshm_tpu_torch.utils.metrics import MetricLogger
 
 
 class Trainer:
-    """Stateful training loop.  ``device=None`` means the card.  With ``profile_dir``,
-    the first epoch that ``run()`` executes is traced with ``torch.profiler`` (the host,
-    and the card on CUDA) into a Chrome trace ``trace_epoch_<epoch>.json`` there."""
+    """Stateful training loop.  ``device=None`` means the card (under data parallelism
+    ``cuda:<LOCAL_RANK>``).  With ``profile_dir``, the first epoch that ``run()``
+    executes is traced with ``torch.profiler`` (the host, and the card on CUDA) into a
+    Chrome trace ``trace_epoch_<epoch>.json`` there.  ``world_size`` and ``rank`` say
+    how the batch is split (1 and 0 without data parallelism)."""
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None,
                  logger: MetricLogger | None = None, profile_dir: str | None = None):
         check_supported(cfg)
         self.cfg = cfg
+        self.world_size = parallel.data_parallel_layout(cfg.train.mesh_shape)
+        self.rank = parallel.world_and_rank()[1] if self.world_size > 1 else 0
+        # the ranks' mean of gradients and metrics (None: one process, no collective)
+        self._mean = parallel.AllReduceMean() if self.world_size > 1 else None
+        if device is None and self._mean is not None:
+            device = local_card()
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_exact_float32()
@@ -66,9 +85,18 @@ class Trainer:
         """Build the optimizer state of (kind, group) on a switch; the parameters (and
         the step count) carry over.  After a params-only ``load`` the state holds the
         model and no optimizer, and ``_opt_kind`` is None, so the first step builds
-        one around the loaded parameters."""
+        one around the loaded parameters.  Under data parallelism the new state is
+        rank 0's on every rank."""
         if self.state is not None and (kind, group) == self._opt_kind:
             return
+        self._build_state(kind, group)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        if self._mean is not None:
+            parallel.replicate_state(self.state)
+
+    def _build_state(self, kind: str, group: str) -> None:
         if self.state is None:
             model, step = init_model(self.cfg, self.device), 0
         else:
@@ -92,9 +120,14 @@ class Trainer:
     def _source(self, sampler: MinibatchSampler):
         """The prefetcher of one epoch, or None (``data.prefetch == 0``: the loop samples
         itself).  ``data.device_decode``: None decodes on the device when it is CUDA and
-        the sampler can (``supports_device_decode``), True requires that the sampler
-        can, False decodes on the host."""
+        the sampler can (``supports_device_decode``) and the trainer is not
+        data-parallel, True requires both, False decodes on the host."""
         cfg = self.cfg.data
+        if self._mean is not None and cfg.device_decode:
+            raise ValueError(
+                "data.device_decode=True needs an unsharded mesh and the default augment "
+                "transform (custom augment_fns and sharded batches use the host-decode "
+                "path)")
         if cfg.prefetch <= 0:
             if cfg.device_decode:
                 raise ValueError("data.device_decode=True requires data.prefetch > 0 "
@@ -106,7 +139,7 @@ class Trainer:
                              "transform (a custom augment_fn uses the host decode)")
         use = cfg.device_decode
         if use is None:
-            use = raw_ok and self.device.type == "cuda"
+            use = raw_ok and self.device.type == "cuda" and self._mean is None
         kind = DeviceDecodePrefetcher if use else PrefetchIterator
         return kind(sampler, cfg.prefetch, self.device)
 
@@ -162,16 +195,16 @@ class Trainer:
                         mb = sampler.sample()
                         x, uv = place(mb.x), place(mb.uv)
                     self._ensure_state(kind, group)
-                    step = (make_train_step(cfg, mb.num_baselines) if kind == "adam" else
-                            make_lbfgs_train_step(cfg, mb.num_baselines, group))
+                    step = self._step(kind, group, mb.num_baselines)
                     if pending is not None:
                         settle(pending)
                     snap = self._snapshot() if cfg.train.skip_nonfinite else None
                     self.state, metrics = step(self.state, x, uv, w)
+                    patches = x.shape[0] * self.world_size     # the global batch
                     if cfg.train.skip_nonfinite:
-                        pending = (snap, metrics, it, x.shape[0])
+                        pending = (snap, metrics, it, patches)
                     elif it % max(cfg.train.log_every, 1) == 0:
-                        self.logger.log_step(epoch, it, metrics, patches=x.shape[0])
+                        self.logger.log_step(epoch, it, metrics, patches=patches)
                     every = cfg.train.save_every_iters
                     if (every and cfg.train.checkpoint_dir and (it + 1) % every == 0
                             and it + 1 < cfg.train.iters_per_epoch):
@@ -198,6 +231,16 @@ class Trainer:
                       epoch=cfg.train.num_epochs)
         return self.logger.summary()
 
+    def _step(self, kind: str, group: str, num_groups: int):
+        """The minibatch step of (kind, group); under data parallelism ``num_groups``
+        is this rank's count (``train/parallel.py`` says why)."""
+        if self._mean is not None:
+            return parallel.make_data_parallel_step(self.cfg, num_groups, self._mean,
+                                                    kind, group)
+        if kind == "adam":
+            return make_train_step(self.cfg, num_groups)
+        return make_lbfgs_train_step(self.cfg, num_groups, group)
+
     def _start_profiler(self):
         from torch.profiler import ProfilerActivity, profile
 
@@ -221,18 +264,23 @@ class Trainer:
         """Parameters, optimizer state (Adam's, or the L-BFGS state) and step in one
         file, with ``opt_kind`` = [kind, group]; the config and the position (epoch,
         iteration within it) beside it.  Before any step after a params-only ``load``
-        there is no optimizer state, and the file holds the parameters only."""
+        there is no optimizer state, and the file holds the parameters only.  Under
+        data parallelism every rank enters; rank 0 writes the file (whole, by rename)
+        and no rank returns before it is written."""
         if self.state is None:
             print("warning: nothing to checkpoint (no training has run); skipping save")
             return
-        s = self.state
-        state = {"params": s.model.state_dict()}
-        if self._opt_kind is not None:
-            state.update(optimizer=s.opt.state_dict(), step=s.step,
-                         opt_kind=list(self._opt_kind))
-        save_checkpoint(ckpt_dir, state, step,
-                        extras={"config": self.cfg.to_dict(), "epoch": epoch,
-                                "iter": int(iter_in_epoch)})
+        if self.rank == 0:
+            s = self.state
+            state = {"params": s.model.state_dict()}
+            if self._opt_kind is not None:
+                state.update(optimizer=s.opt.state_dict(), step=s.step,
+                             opt_kind=list(self._opt_kind))
+            save_checkpoint(ckpt_dir, state, step,
+                            extras={"config": self.cfg.to_dict(), "epoch": epoch,
+                                    "iter": int(iter_in_epoch)})
+        if self._mean is not None:
+            parallel.barrier()
 
     def load(self, ckpt_dir: str, step: int | None = None) -> None:
         """Restore a checkpoint (default: the latest step).  A file with ``optimizer``
@@ -241,12 +289,13 @@ class Trainer:
         A params-only file (an imported reference model) loads the parameters; the
         optimizer state is built around them at the first step.  The sidecar's epoch
         and iteration set where the next ``run()`` starts; a load with no recorded
-        position starts from epoch 0 (never from an earlier load's position)."""
+        position starts from epoch 0 (never from an earlier load's position).  Under
+        data parallelism every rank reads the file and then takes rank 0's state."""
         saved, extras = restore_checkpoint(ckpt_dir, step, map_location="cpu")
         self.state, self._opt_kind = None, None
         if "optimizer" in saved and "opt_kind" in saved:
             kind, group = saved["opt_kind"]
-            self._ensure_state(kind, group)
+            self._build_state(kind, group)
             s = self.state
             s.model.load_state_dict(saved["params"])
             if kind == "adam":
@@ -258,6 +307,7 @@ class Trainer:
             model = init_model(self.cfg, self.device)
             model.load_state_dict(saved["params"])
             self.state = TrainState(model, opt=None, step=0)
+        self._replicate()
         if extras and extras.get("epoch") is not None:
             self._resume_epoch = int(extras["epoch"])
             self._resume_iter = int(extras.get("iter") or 0)

@@ -235,12 +235,24 @@ def test_graph_runs_on_the_cpu(trained, kind, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["bench"], "C.8"),
-    (["train", "--data-dir", "d", "--num-processes", "2"], "A9"),
 ])
 def test_unported_commands_exit_naming_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert str(e.value.code).startswith("error:") and f"ROADMAP {item}" in str(e.value.code)
+
+
+@pytest.mark.parametrize("flags", [["--num-processes", "2"],
+                                   ["--coordinator", "localhost:1234"]],
+                         ids=["num-processes", "coordinator"])
+def test_a_half_given_multi_host_configuration_exits_with_error(flags, monkeypatch):
+    """The multi-host flags are ported (ROADMAP A9): half of them exit with JAX's
+    message (``tests/test_torch_distributed.py`` trains on two processes)."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train", "--data-dir", "d", *flags])
+    assert str(e.value.code).startswith("error: incomplete multi-host configuration")
 
 
 @pytest.mark.parametrize("override", ["foo.bar=1", "model.fuse_1d=true",

@@ -32,7 +32,8 @@ bad = [k for k, m in sys.modules.items() if m is not None and (
                               "PIL", "networkx"))]
 assert not bad, bad
 for name in ("lshm_tpu_torch.cli", "lshm_tpu_torch.data.device_decode",
-             "lshm_tpu_torch.graph"):
+             "lshm_tpu_torch.graph", "lshm_tpu_torch.train.parallel",
+             "lshm_tpu_torch.train.distributed", "lshm_tpu_torch.tools.ranks"):
     assert name in sys.modules, name
 print("imported", len([k for k in sys.modules if k.startswith("lshm_tpu_torch")]))
 """
@@ -211,7 +212,6 @@ def test_kernel_wrappers_refuse_wrong_shapes():
 UNPORTED = {
     "model.fuse_1d": lambda c: _rep(c, "model", fuse_1d=True),
     "model.packed_conv2d": lambda c: _rep(c, "model", packed_conv2d=1),
-    "train.mesh_shape": lambda c: _rep(c, "train", mesh_shape=(4,)),
     "train.remat": lambda c: _rep(c, "train", remat=True),
 }
 

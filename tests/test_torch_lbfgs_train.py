@@ -1,8 +1,10 @@
 """The port's L-BFGS ADMM step against the JAX step (``make_lbfgs_train_step``, jitted)
 on one minibatch of 4 patches (latent 16/8, 4 clusters, max_iter=2, admm_iters=1), for
 group "all" with the backtracking line search and for the frozen-group path (group
-"ae1d") with the fixed step; and the port's Trainer through an Adam -> L-BFGS ramp on
-the CPU.
+"ae1d") with the fixed step; the same step data-parallel on two gloo ranks, each on
+its half of the minibatch, against the same JAX references (JAX's sharded gates,
+``test_lbfgs_sharded_step_matches_single_device``, ``tests/test_train_step.py:161``);
+and the port's Trainer through an Adam -> L-BFGS ramp on the CPU.
 
 The JAX reference is computed once per case in a module fixture: the jitted step
 (about 60 s to compile with the line search on this CPU, 40 s without) is cheaper than
@@ -35,6 +37,7 @@ from lshm_tpu_torch.train import (
 )
 from lshm_tpu_torch.utils import restore_checkpoint
 from lshm_tpu_torch.utils.metrics import MetricLogger
+from test_torch_parallel import assert_ranks_identical, start_ranks
 
 MODEL = dict(latent_dim=16, latent_dim_1d=8, num_clusters=4)
 
@@ -56,14 +59,30 @@ def _batch():
     return x, uv
 
 
-@pytest.fixture(scope="module", params=[("all", True), ("ae1d", False)],
-                ids=["all-line_search", "ae1d-fixed_step"])
+CASES = {"all-line_search": ("all", True), "ae1d-fixed_step": ("ae1d", False)}
+
+
+def _init_sd(group: str) -> dict:
+    return {k: v.clone() for k, v in
+            init_lbfgs_train_state(_cfg(tc), "cpu", group).model.state_dict().items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def data_parallel_ranks(tmp_path_factory):
+    """Both cases' step on two gloo ranks (``tests/test_torch_parallel.py``'s child),
+    started before the JAX references compile and read by the data-parallel tests."""
+    cases = [{"name": name, "cfg": _cfg(tc, line_search), "kind": "lbfgs",
+              "group": group, "init": _init_sd(group)}
+             for name, (group, line_search) in CASES.items()]
+    return start_ranks(tmp_path_factory.mktemp("ranks"), cases, *_batch(), groups=2)
+
+
+@pytest.fixture(scope="module", params=list(CASES.values()), ids=list(CASES))
 def jax_reference(request):
     """Initial port state dict, and the JAX step's metrics, func_evals and params."""
     group, line_search = request.param
     cfg = _cfg(jc, line_search)        # plain XLA convs and the XLA KHM expression
-    init_sd = {k: v.clone() for k, v in
-               init_lbfgs_train_state(_cfg(tc), "cpu", group).model.state_dict().items()}
+    init_sd = _init_sd(group)
     params = jax.tree.map(jnp.asarray, to_flax(init_sd))
     state = JLBFGSTrainState(params=params, opt_state=jax_lbfgs_init(params, cfg.optim.lbfgs),
                              step=jnp.zeros((), jnp.int32))
@@ -108,6 +127,43 @@ def test_lbfgs_step_matches_jax(jax_reference, kernels):
     # the L-BFGS state spans the active group's parameters only
     names = set(state.opt.d)
     assert names == {n for n in init_sd if group == "all" or n.split(".")[0] in ("aeT", "aeF")}
+
+
+def test_data_parallel_lbfgs_step_matches_jax(jax_reference, data_parallel_ranks):
+    """Two ranks, each on 2 of the 4 patches with its one augmentation group: every
+    closure evaluation reduced over the ranks, so both take the same line-search
+    branches (bit-identical parameters, the same func_evals and host reads) and match
+    JAX on the whole minibatch at JAX's sharded gates (loss rtol 2e-4, the same
+    func_evals, parameters atol 3e-4), and the port's single-process step's closure
+    evaluations and host reads."""
+    group, line_search, init_sd, want_metrics, want_evals, want_params = jax_reference
+    name = "all-line_search" if line_search else "ae1d-fixed_step"
+    ranks = data_parallel_ranks.result()
+    assert_ranks_identical(ranks, name)
+    got = ranks[1][name]
+    assert got["func_evals"] == ranks[0][name]["func_evals"] == want_evals
+    assert got["host_syncs"] == ranks[0][name]["host_syncs"] > 0
+    for k, v in want_metrics.items():
+        np.testing.assert_allclose(got["metrics"][k].numpy(), v, rtol=2e-4, err_msg=k)
+    leaves = lambda tree: dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    mine = leaves(to_flax(got["params"]))
+    for path, v in leaves(want_params).items():
+        np.testing.assert_allclose(mine[path], v, atol=3e-4,
+                                   err_msg=jax.tree_util.keystr(path))
+    # the single-process port on the whole minibatch: the same reads of the host
+    cfg = _cfg(tc, line_search)
+    state = init_lbfgs_train_state(cfg, "cpu", group)
+    state.model.load_state_dict(init_sd)
+    x, uv = _batch()
+    state, _ = make_lbfgs_train_step(cfg, 2, group)(
+        state, torch.tensor(x), torch.tensor(uv), LossWeights())
+    assert got["host_syncs"] == state.opt.host_syncs
+    # one all-reduce per closure evaluation and one of the metrics: the line search's
+    # value-only probes are reduced too, though only its halvings count in func_evals
+    if line_search:
+        assert got["calls"] > got["func_evals"] + 1
+    else:
+        assert got["calls"] == got["func_evals"] + 1
 
 
 def _trainer_cfg(tmp_path, **train_kw):
