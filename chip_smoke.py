@@ -171,10 +171,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 after the first minibatch within JAX's mesh gate (atol 2e-5, rtol 1e-4);
                 ms per ADMM iteration, peak memory and the all-reduce's ms per rank (two
                 ranks share the card's SMs: not a scaling figure)
+  21. rewrites  the exact rewrites and remat at full width, each off by default: (a) one
+                full_khm minibatch (420 patches, 12 groups, 10 ADMM iterations) from one
+                state through the Adam step of the default, fuse_1d, fast_conv1d,
+                packed_conv2d=2, no head, packed_conv2d=6 without the head (held
+                against no head), remat, all four together (packed_conv2d=2) and the
+                fused step with remat: per-term metrics within 1e-4, K1-K4 launches
+                as derived (10, 10, 20, 10; K3/K4 0 without the head; under remat K1 20
+                and K3 30, the fused step's K3 20), ms per ADMM iteration (CUDA events)
+                in two rounds in mirrored order, peak memory of each; (b) bfloat16_full
+                with fuse_1d and fast_conv1d: the first ADMM iteration within JAX's bf16
+                gate of float32's, K1, K2 and the bf16 K3/K4 launched; (c) the float32
+                L-BFGS closure (value, every gradient) with every rewrite and remat
+                against the defaults (1e-4 / 2e-4; K1 2, K3 2 against 1, 1), then one
+                L-BFGS ADMM iteration of each with func_evals; (d) recon_admm_losses at
+                [420, 128, 128, 4] float32 against autograd through the term-by-term
+                form (values 1e-6, gradients 1e-5), ms forward + backward of each;
+                (e) the Trainer with every rewrite and remat, 1 epoch x 2 minibatches:
+                K1-K4 40, 20, 60, 20
 Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15, the CLI's train,
-resume and exported call, 18, 19's graph builds, trainings and CLI calls, and 20's
-steps and trainers) is driven with the launch counts set to 0 just before it and read
-just after.  Then a seconds line, the kernels table as one JSON line, the
+resume and exported call, 18, 19's graph builds, trainings and CLI calls, 20's steps
+and trainers, and 21's steps, closures and trainer) is driven with the launch counts
+set to 0 just before it and read just after.  Then a seconds line, the kernels table as one JSON line, the
 card's name and power limit, and {"ok": true, "device": {...}} as the last line.
 Without a CUDA device it exits 2 before printing any result.  It imports nothing of JAX
 or of the JAX package.
@@ -2767,6 +2785,238 @@ def data_parallel_phase(dev, tree, tmpdir: str) -> dict:
             "two_ranks": r0["launches"]}
 
 
+# ------------------------------------------------------------------------- phase 21
+
+REWRITES = dict(fuse_1d=True, fast_conv1d=True, packed_conv2d=2)
+# name: (model fields, train.remat, fused step, the variant it is held against)
+REWRITE_VARIANTS = {
+    "default": ({}, False, False, "default"),
+    "fuse_1d": (dict(fuse_1d=True), False, False, "default"),
+    "fast_conv1d": (dict(fast_conv1d=True), False, False, "default"),
+    "packed_conv2d=2": (dict(packed_conv2d=2), False, False, "default"),
+    "no_head": (dict(pallas_head=False), False, False, "default"),
+    "packed_conv2d=6,no_head": (dict(packed_conv2d=6, pallas_head=False), False, False,
+                                "no_head"),
+    "remat": ({}, True, False, "default"),
+    "all": (REWRITES, True, False, "default"),
+    "fused,remat": ({}, True, True, "default"),
+}
+
+
+def _variant(cfg, name: str):
+    import dataclasses
+
+    model, remat, _, _ = REWRITE_VARIANTS[name]
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model),
+        train=dataclasses.replace(cfg.train, remat=remat))
+
+
+def rewrite_launches(nadmm: int, name: str) -> dict:
+    """K1-K4 launches of one minibatch of ``nadmm`` ADMM iterations of variant
+    ``name``: per iteration the objective's forward (K1, K3), its backward (K2, K4) and
+    the dual update's forward (K3; none in the fused step); under remat the backward
+    runs the objective's forward again (K1 and K3 once more; the fused step recomputes
+    the model's forward only, K3); without the head no K3 or K4."""
+    model, remat, fused, _ = REWRITE_VARIANTS[name]
+    k1 = nadmm * (2 if remat and not fused else 1)
+    k3 = nadmm * ((1 if fused else 2) + (1 if remat else 0))
+    head = model.get("pallas_head", True)
+    return {"khm_fwd": k1, "khm_bwd": nadmm, "head_fwd": k3 if head else 0,
+            "head_bwd": nadmm if head else 0}
+
+
+def rewrites_phase(dev, tree, tmpdir: str) -> dict:
+    """Phase 21: the exact rewrites and remat at full width, each off by default.
+    (a) one full_khm minibatch (420 patches, 12 groups, 10 ADMM iterations) from one
+    initial state through the Adam step of each variant of ``REWRITE_VARIANTS``: per-term
+    metrics within 1e-4 of the variant it is held against, K1-K4 launches as
+    ``rewrite_launches`` derives them, ms per ADMM iteration (CUDA events) in two rounds
+    in mirrored order, peak memory; (b) bfloat16_full with fuse_1d and fast_conv1d, its
+    first ADMM iteration within JAX's bf16 gate of float32's; (c) the float32 L-BFGS
+    closure with every rewrite and remat against the defaults (1e-4 / 2e-4), then one
+    L-BFGS ADMM iteration of each; (d) recon_admm_losses at [420, 128, 128, 4] against
+    autograd through the term-by-term form; (e) the Trainer with every rewrite and remat,
+    1 epoch x 2 minibatches.  Returns (e)'s launch counts."""
+    import dataclasses
+    import math
+
+    from lshm_tpu_torch import losses
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.optim import value_and_grad
+    from lshm_tpu_torch.tools.measure import time_ms
+    from lshm_tpu_torch.train import (Duals, Trainer, active_params, init_lbfgs_train_state,
+                                      init_train_state, lbfgs_objective,
+                                      make_lbfgs_train_step, make_train_step,
+                                      metrics_and_dual_update)
+    from lshm_tpu_torch.utils import MetricLogger
+
+    cfg = flagship_config(tmpdir)
+    sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+    sampler.reseed(0)
+    mb = sampler.sample()
+    x, uv = (torch.from_numpy(a).to(dev) for a in (mb.x, mb.uv))
+    w, nb, nadmm = _loss_weights(cfg), mb.num_baselines, cfg.train.admm_iters
+
+    # (a) the Adam step of each variant
+    names = list(REWRITE_VARIANTS)
+    steps = {n: make_train_step(_variant(cfg, n), nb, fused=REWRITE_VARIANTS[n][2])
+             for n in names}
+    one = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, admm_iters=1))
+    for n in names:                                  # warm-up: one ADMM iteration each
+        make_train_step(_variant(one, n), nb, fused=REWRITE_VARIANTS[n][2])(
+            init_train_state(_variant(one, n), dev), x, uv, w)
+    runs: dict[str, list] = {n: [] for n in names}
+    for n in names + names[::-1]:
+        state = init_train_state(_variant(cfg, n), dev)       # the seed's initial state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, metrics = steps[n](state, x, uv, w)
+        end.record()
+        torch.cuda.synchronize()
+        runs[n].append({"ms": start.elapsed_time(end) / nadmm, "launches": launch_counts(),
+                        "peak": torch.cuda.max_memory_allocated(),
+                        "metrics": {k: v.cpu() for k, v in metrics.items()}})
+        del state
+    gaps = {n: max(rel_err(runs[n][0]["metrics"][k], runs[REWRITE_VARIANTS[n][3]][0]
+                           ["metrics"][k]) for k in runs[n][0]["metrics"])
+            for n in names}
+    row_a = {"phase": "rewrites_adam", "preset": "full_khm", "patches": x.shape[0],
+             "groups": nb, "admm_iters": nadmm,
+             "held_against": {n: REWRITE_VARIANTS[n][3] for n in names},
+             "ms_per_admm_iter": {n: [r["ms"] for r in runs[n]] for n in names},
+             "peak_mem_gb": {n: [r["peak"] / 1e9 for r in runs[n]] for n in names},
+             "metric_rel_err": gaps,
+             "launches": {n: runs[n][0]["launches"] for n in names}}
+    emit(row_a)
+    for n in names:
+        for r in runs[n]:
+            expect_launches(r["launches"], rewrite_launches(nadmm, n), f"variant {n}")
+    if max(gaps.values()) > 1e-4:
+        raise AssertionError(f"a rewrite's metrics are off its reference: {gaps}")
+
+    # (b) bfloat16_full with the 1D rewrites: the first ADMM iteration against float32's
+    cfg_b = dataclasses.replace(one, model=dataclasses.replace(
+        one.model, compute_dtype="bfloat16_full", fuse_1d=True, fast_conv1d=True))
+    reset_launches()
+    _, m_b = make_train_step(cfg_b, nb)(init_train_state(cfg_b, dev), x, uv, w)
+    torch.cuda.synchronize()
+    launched_b = launch_counts()
+    f32 = {k: float(v[0]) for k, v in runs["default"][0]["metrics"].items()}
+    bf16 = {k: float(v[0]) for k, v in m_b.items()}
+    gap_b = {k: abs(f32[k] - bf16[k]) / (0.05 * abs(f32[k]) + 5e-3) for k in f32}
+    emit({"phase": "rewrites_bf16", "flags": ["fuse_1d", "fast_conv1d"], "float32": f32,
+          "bfloat16_full": bf16, "gap_over_gate": gap_b, "launches": launched_b})
+    expect_launches(launched_b, {"khm_fwd": 1, "khm_bwd": 1, "head_fwd_bf16": 2,
+                                 "head_bwd_bf16": 1, "head_fwd": 0, "head_bwd": 0},
+                    "bf16 step with the 1D rewrites")
+    if max(gap_b.values()) > 1.0:
+        raise AssertionError(f"bf16 with the rewrites is outside JAX's gate: {gap_b}")
+
+    # (c) the float32 L-BFGS closure and one ADMM iteration, every rewrite and remat
+    cfg_l = lbfgs_config(compute_dtype="float32")
+    cfg_l = dataclasses.replace(cfg_l, train=dataclasses.replace(cfg_l.train, admm_iters=1))
+    cfg_lr = dataclasses.replace(
+        cfg_l, model=dataclasses.replace(cfg_l.model, **REWRITES),
+        train=dataclasses.replace(cfg_l.train, remat=True))
+    wl = _loss_weights(cfg_l)
+    closure, launched, lsteps, duals = {}, {}, {}, None
+    for name, c in (("defaults", cfg_l), ("rewrites_remat", cfg_lr)):
+        state = init_lbfgs_train_state(c, dev, "all")
+        model = state.model
+        if duals is None:    # non-zero duals: one dual update from the initial weights
+            _, duals = metrics_and_dual_update(model, x, uv, Duals.zeros_like(x), wl, nb)
+        params = active_params(model, "all")
+        vg = value_and_grad(lbfgs_objective(c, nb))
+        reset_launches()
+        closure[name] = vg(params, model, {}, x, uv, duals, wl)
+        torch.cuda.synchronize()
+        launched[name] = {k: launch_counts()[k] for k in ADAM_PATH}
+        lstep = make_lbfgs_train_step(c, nb, "all")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = lstep(state, x, uv, wl)
+        torch.cuda.synchronize()
+        lsteps[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                        "func_evals": state.opt.func_evals,
+                        "host_syncs": state.opt.host_syncs, "loss": float(m["loss"][-1])}
+    (vd, gd), (vr, gr) = closure["defaults"], closure["rewrites_remat"]
+    grad_err = {n: rel_err(gr[n], gd[n]) for n in gd}
+    worst = max(grad_err, key=grad_err.get)
+    row_c = {"phase": "rewrites_lbfgs", "flags": {**REWRITES, "remat": True},
+             "value_rel_err": rel_err(vr, vd), "grad_rel_err_max": grad_err[worst],
+             "grad_worst": worst, "closure_launches": launched, "step": lsteps}
+    emit(row_c)
+    expect_launches(launched["defaults"], dict.fromkeys(ADAM_PATH, 1), "L-BFGS closure")
+    expect_launches(launched["rewrites_remat"], {"khm_fwd": 2, "khm_bwd": 1, "head_fwd": 2,
+                                                 "head_bwd": 1}, "remat L-BFGS closure")
+    if row_c["value_rel_err"] > 1e-4 or row_c["grad_rel_err_max"] > 2e-4:
+        raise AssertionError("the L-BFGS closure with the rewrites disagrees")
+
+    # (d) recon_admm_losses against autograd through the term-by-term form
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shape = (PATCHES, 128, 128, 4)
+    xr, *rest = (torch.randn(shape, device=dev, generator=gen) for _ in range(7))
+    a1, a2, a3, y1, y2, y3 = rest
+    numel, rho = xr.numel(), 1.0
+    wts = (1.0, 2.0, 3.0, 4.0)
+
+    def term_form(b1, b2, b3):
+        x11 = (xr - b1) * 0.5
+        return (losses.mse_sum(b1 + b2 + b3, xr) / numel,
+                losses.admm_term(y1, xr - b1, rho) / numel,
+                losses.admm_term(y2, x11 - b2, rho) / numel,
+                losses.admm_term(y3, x11 - b3, rho) / numel)
+
+    forms = {"recon_admm_losses": lambda *b: losses.recon_admm_losses(*b, xr, y1, y2, y3, rho),
+             "autograd": term_form}
+    results, times = {}, {}
+    for name, form in forms.items():
+        def fwd_bwd():
+            args = [a.detach().requires_grad_() for a in (a1, a2, a3)]
+            terms = form(*args)
+            sum(c * t for c, t in zip(wts, terms)).backward()
+            return [t.detach() for t in terms], [a.grad for a in args]
+        results[name] = fwd_bwd()
+        times[name] = time_ms(fwd_bwd, repeats=10)
+    (vf, gf), (va, ga) = results["recon_admm_losses"], results["autograd"]
+    row_d = {"phase": "rewrites_recon_admm_losses", "shape": list(shape),
+             "value_rel_err": [rel_err(p, q) for p, q in zip(vf, va)],
+             "grad_rel_err": [rel_err(p, q) for p, q in zip(gf, ga)],
+             "ms_fwd_bwd": times}
+    emit(row_d)
+    if max(row_d["value_rel_err"]) > 1e-6 or max(row_d["grad_rel_err"]) > 1e-5:
+        raise AssertionError(f"recon_admm_losses disagrees with autograd: {row_d}")
+    del xr, rest, a1, a2, a3, y1, y2, y3, results
+
+    # (e) the Trainer with every rewrite and remat
+    cfg_e = _variant(cfg, "all")
+    cfg_e = dataclasses.replace(cfg_e, train=dataclasses.replace(cfg_e.train,
+                                                                 iters_per_epoch=2))
+    sampler = MinibatchSampler([tree], ["0"], cfg_e.data, seed=cfg_e.train.seed)
+    logger = MetricLogger(echo=False)
+    trainer = Trainer(cfg_e, logger=logger)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    summary = trainer.run(sampler)
+    counts = launch_counts()
+    hist = logger.history
+    row_e = {"phase": "rewrites_trainer", "flags": {**REWRITES, "remat": True},
+             "minibatches": len(hist), "losses": summary, "launches": counts,
+             "ms_per_admm_iter": (hist[-1]["t"] - hist[0]["t"]) / nadmm * 1e3,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row_e)
+    expect_launches(counts, {k: 2 * v for k, v in rewrite_launches(nadmm, "all").items()},
+                    "Trainer with the rewrites")
+    if len(hist) != 2 or not all(math.isfinite(v) for v in summary.values()):
+        raise AssertionError(f"the Trainer with the rewrites did not train: {row_e}")
+    return counts
+
+
 def data_parallel_child(mode: str, root: str, *args: str) -> int:
     """The entry of a child of phase 20 (``_dp_argv``)."""
     sys.path.insert(0, root)
@@ -2853,6 +3103,7 @@ def main() -> int:
     timed("native_decode", native_decode_phase, tree, eval_tree)
     timed("rica", in_tmpdir, lambda d: rica_phase(tree, d))
     dp = timed("data_parallel", in_tmpdir, lambda d: data_parallel_phase(dev, tree, d))
+    rewrites = timed("rewrites", in_tmpdir, lambda d: rewrites_phase(dev, tree, d))
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2
@@ -2878,6 +3129,8 @@ def main() -> int:
             # two-rank Trainer (3 minibatches)
             k["launches_data_parallel"] = {n: dp[n][counter]
                                            for n in ("data_parallel", "fused", "two_ranks")}
+            # the Trainer with every exact rewrite and remat (2 minibatches)
+            k["launches_rewrites"] = rewrites[counter]
         if counter in ("head_fwd", "head_fwd_bf16"):   # K3: per chunk, per exported call
             ev = evals["float32" if counter == "head_fwd" else "bfloat16_full"]
             k["launches_eval"] = {"device_decode": ev["k3_launches"],

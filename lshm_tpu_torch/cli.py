@@ -80,7 +80,7 @@ def _build_config(args):
         sys.exit(f"error: bad --set override: {e}")
     try:
         check_supported(cfg)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         sys.exit(f"error: {e}")
     return cfg
 

@@ -6,10 +6,10 @@ same experiment in both packages.  Two defaults differ (``ModelConfig.khm_backen
 ``ModelConfig.pallas_head``, see their comments): the JAX defaults were chosen from TPU
 measurements, and on the GPU those two fields select the hand-written CUDA kernels.
 
-Fields whose code the port does not have yet are rejected by ``check_supported`` with
-``NotImplementedError`` naming the field, never silently ignored.  The long comments on
-the TPU-only layout rewrites are kept from the JAX file because they explain what those
-fields mean; their timings are TPU v5e measurements, not the port's.
+Every field is ported: ``check_supported`` raises only on a value the JAX package
+would not take either.  Comments here say what a field does in the port.  The JAX
+package's TPU record of each field, the reason for its JAX default, is in
+``lshm_tpu/config.py``; the port's own times on the card are in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -74,38 +74,29 @@ class ModelConfig:
     khm_backend: str = "auto"
     # compute dtype for conv/dense activations
     # ("float32" | "bfloat16" | "bfloat16_full"); params stay f32 in all modes.
-    # bfloat16 feeds the v5e MXU natively (f32 convs lower to multi-pass bf16) but
-    # keeps the full-resolution residual/loss path in f32.  bfloat16_full also casts
+    # bfloat16 computes the convolutions and dense layers in bf16 and keeps the
+    # full-resolution residual and loss path in float32; bfloat16_full also casts
     # the input batch (and therefore the AE outputs, residuals and ADMM duals) to
-    # bf16 — the flagship step is HBM-bandwidth-bound on those ~110 MB arrays, so
-    # halving their width is the single biggest throughput lever; every loss still
-    # accumulates in f32 (lshm_tpu/losses.py::_f32).
+    # bf16, which halves the bytes of those full-resolution arrays.  Every loss still
+    # accumulates in float32 (losses.py::_f32).
     compute_dtype: str = "float32"
+    # The three exact rewrites below compute the same sums as the layers they replace,
+    # on the same parameters, so checkpoints and the reference importer are unchanged.
+    # All three are off by default, as in JAX, whose defaults are TPU results; the
+    # port's times on the card are in PERF.md.
     # Run the two identical-topology 1D AEs (time-major aeT + freq-major aeF) as one
-    # grouped-convolution stack: exact same math (parity-tested), half the 1D op
-    # count, double the channel width per op.  Param tree / checkpoints / importer
-    # are unchanged — the fusion reads the aeT/aeF subtrees at apply time.
-    # DEFAULT OFF — measured negative result on TPU v5e (2026-08-17): the fused
-    # flagship step timed 22.5 ms/ADMM-iter vs 14.4 unfused (XLA lowers
-    # feature_group_count=2 convs worse than two separate thin convs here).
+    # grouped-convolution stack (models/autoencoders.py::fused_dual_ae1d): half the
+    # 1D conv launches, twice the channels per op.
     fuse_1d: bool = False
-    # Exact rewrites of the 1D AEs' stride-4 ops (packed-view conv backward +
-    # Dense-as-ConvTranspose; see lshm_tpu/models/autoencoders.py). Same math and
-    # param tree, parity-tested.  DEFAULT OFF — measured negative IN-GRAPH on TPU
-    # v5e (2026-08-17, bf16_full flagship batch 420): packed-bwd convs 39.0k vs
-    # 41.0k patches/s, Dense tconv 28.8-30.5k — even though standalone op probes
-    # showed 1.5-2.4x backward wins; composed with the surrounding bias/ELU/cotangent
-    # fusions XLA's native conv lowering is better.
+    # Exact rewrites of the 1D AEs' stride-4 ops: the conv's backward as the
+    # gradients of its packed-view k=2, s=1 equivalent (conv1d_s4), the transposed
+    # conv as one matrix product (its taps do not overlap).
     fast_conv1d: bool = False
-    # Space-to-depth packed rewrite of the 2D AE's outermost stride-2 conv stages
-    # (encoder conv0..conv{n-1}, decoder tconv{6-n}..tconv5): exact math, identical
-    # param tree (lshm_tpu/models/autoencoders.py::conv2d_s2_packed).  The k=4, s=2,
-    # p=1 geometry packs with zero tap duplication, so the full-resolution layers —
-    # where the step's HBM traffic lives — run with 4x the channel (lane) width.
-    # DEFAULT OFF — measured composed-step NEGATIVE on TPU v5e (2026-08-18,
-    # bf16_full flagship batch 420): depths 1/2/3 all ~12-13% below the depth-0
-    # control (36.5/36.0/35.8k vs 41.3k patches/s) — the s2d/d2s copies break more
-    # fusion than the lane packing wins (benchmarks/packed_conv2d_report.json).
+    # Space-to-depth packed rewrite of the 2D AEs' outermost stride-2 stages (encoder
+    # conv0..conv{n-1}, decoder tconv{6-n}..tconv5; conv2d_s2_packed,
+    # convt2d_s2_packed): the k=4, s=2, p=1 geometry packs with no tap duplication,
+    # so the full-resolution layers run as k=2, s=1 convs with 4x the channels.
+    # Under pallas_head, encoder stages 0 and 1 stay in the fused kernel.
     packed_conv2d: int = 0
     # Fused kernel for the 2D AE's two outermost encoder stages (conv0 + ELU +
     # conv1 + ELU in one pass, with a rematerialising backward for the weight
@@ -154,17 +145,7 @@ class LBFGSConfig:
     # iteration i+1 or a discarded no-op; trajectories match the while lowering
     # bit-for-bit (tests/test_lbfgs.py::test_unroll_outer_matches_while).  The line
     # searches inside each slot keep their (data-dependent) while loops.
-    # Measured on the flagship closure (TPU v5e, 2026-08-19, benchmarks/
-    # lbfgs_decompose.py + lbfgs_ab.py): the while-loop lowering costs the
-    # value_and_grad body ~1.18x in isolation (12.56 vs 10.66 ms/eval inside vs
-    # outside a while region) but the COMPOSED optimizer step is neutral (82.96 vs
-    # 83.28 ms/step) — the data-dependent line-search whiles still partition the
-    # program either way, so nothing like the 6.4x ADMM-scan pessimization applies.
-    # DEFAULT OFF (honest neutral): compile time scales with max_iter (each slot
-    # clones the line-search while bodies), pathological for large-max_iter
-    # full-batch configs (tests use up to 50), and the unrolled lowering buys no
-    # measured throughput.  Kept as a bit-parity-tested alternative lowering
-    # (tests/test_lbfgs.py::test_unroll_outer_matches_while).
+    # A choice between two XLA lowerings of the same math (default off in JAX).
     unroll_outer: bool = False        # the port's eager loop is its one lowering:
                                       # accepted, no effect (lshm_tpu_torch/optim/lbfgs.py)
     # Keep gradient machinery enabled during line-search probes (reference:
@@ -242,26 +223,17 @@ class TrainConfig:
     mesh_shape: tuple[int, ...] = (1,)
     mesh_axes: tuple[str, ...] = ("data",)
     precision: str = "float32"        # compute dtype for conv/matmul inputs
-    remat: bool = False               # jax.checkpoint the cascade forward (trade FLOPs
-                                      # for HBM when patch batches grow large)
+    remat: bool = False               # recompute the cascade forward in the backward
+                                      # (torch.utils.checkpoint; train/step.py); as one
+                                      # segment it does not lower the peak (PERF.md)
     # Unroll the ADMM inner loop into straight-line XLA instead of lax.scan.
-    # Measured on TPU v5e (benchmarks/decompose.py, 2026-08-17): the identical
-    # iteration body runs 6.4x SLOWER inside the while-loop lowering (79 vs 12.3
-    # ms/iter at batch 420) — loop-body layout/fusion pessimization — so unrolling
-    # is a pure win for the static, small admm_iters counts used here (compile time
-    # scales with admm_iters; the math is identical either way).
+    # In JAX it chooses between two lowerings with the same math.
     # In the port the ADMM loop is a Python loop whichever value this has: the
     # field (like precision, mesh_axes and admm_unroll_lbfgs) is kept so that
     # override strings stay valid in both packages.
     admm_unroll: bool = True
-    # L-BFGS path override for admm_unroll (None = inherit).  Unlike the Adam body,
-    # the L-BFGS iteration is dominated by its data-dependent line-search while
-    # loops, which partition the program either way — unrolling is perf-NEUTRAL
-    # there (83.0 vs 83.3 ms/iter, benchmarks/lbfgs_decompose.py round 4) while
-    # compile time scales with admm_iters (148 s at nadmm=2 unrolled).  Set False
-    # to lower the L-BFGS ADMM loop as one lax.scan: same math and speed,
-    # admm_iters-independent compile (the full-recipe default via the
-    # full_khm_lbfgs preset and benchmarks/recipe_run.py).
+    # L-BFGS path override for admm_unroll (None = inherit; in JAX False lowers the
+    # L-BFGS ADMM loop as one lax.scan, with the same math).
     admm_unroll_lbfgs: bool | None = None   # the port: accepted, no effect (as admm_unroll)
     skip_nonfinite: bool = True       # drop minibatches whose step produced NaN/Inf loss
                                       # (keep previous state) — the explicit version of
@@ -292,21 +264,9 @@ class Config:
 COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_full")
 
 
-def _raise_unsupported(root: Any, prefix: str, unsupported: list) -> None:
-    for name, bad in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{prefix}{name}={_get(root, name)!r} is not ported to lshm_tpu_torch yet")
-
-
 def check_model_supported(m: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first model field whose code the port
-    does not have yet (the JAX package implements all of them)."""
-    _raise_unsupported(m, "model.", [
-        ("fuse_1d", m.fuse_1d),
-        ("fast_conv1d", m.fast_conv1d),
-        ("packed_conv2d", m.packed_conv2d > 0),
-    ])
+    """Raise ``ValueError`` for a model field value the JAX package does not take
+    either (an unknown KHM backend or compute dtype)."""
     if m.khm_backend not in ("xla", "pallas", "auto"):
         raise ValueError(f"model.khm_backend={m.khm_backend!r}")
     if m.compute_dtype not in COMPUTE_DTYPES:
@@ -314,16 +274,8 @@ def check_model_supported(m: ModelConfig) -> None:
 
 
 def check_supported(cfg: Config) -> None:
-    """``check_model_supported`` plus the data, optimizer and training fields."""
+    """``check_model_supported`` on the model; every other field is ported."""
     check_model_supported(cfg.model)
-    _raise_unsupported(cfg, "", [("train.remat", cfg.train.remat)])
-
-
-def _get(root: Any, path: str) -> Any:
-    node: Any = root
-    for k in path.split("."):
-        node = getattr(node, k)
-    return node
 
 
 def _apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
@@ -405,26 +357,15 @@ def preset(name: str) -> Config:
     if name == "full_khm":           # config #3: full cascaded duo + KHM + ADMM
         return base
     if name == "full_khm_bf16":      # config #3 in the accuracy-gated mixed-precision
-        # mode (bf16 activations/residuals/duals, f32 params/optimizer/losses):
-        # ~1.4x train throughput on TPU v5e (tests/test_bf16.py gates; bench.py
-        # headline mode).  Adam path only — bf16_full loss noise degrades the L-BFGS
-        # line search (benchmarks/PERF_NOTES.md).
+        # mode (bf16 activations/residuals/duals, f32 params/optimizer/losses;
+        # tests/test_torch_bf16*.py hold it to JAX).  Adam path only, as in JAX.
         return base.replace(
             model=dataclasses.replace(base.model, compute_dtype="bfloat16_full")
         )
     if name == "full_khm_lbfgs":     # config #4: same but LBFGS w/ alternating groups.
         # The closure runs compute_dtype="bfloat16" (bf16 conv/dense activations,
-        # f32 residual/loss path): the Armijo sufficient-decrease test still compares
-        # f32 losses, so unlike bf16_full (func_evals blew up 6.8x) the search
-        # trajectory is preserved up to the small f32-loss perturbation bf16
-        # activations introduce — identical func_evals and loss to 7e-6 relative at
-        # flagship dims, +/-1 func_eval on small probes, ~10% faster per step
-        # (benchmarks/PERF_NOTES.md round 4; accuracy gate:
-        # tests/test_bf16.py::test_lbfgs_bf16_tracks_f32).
-        # admm_unroll_lbfgs=False: the L-BFGS ADMM loop lowers as one lax.scan —
-        # measured perf-neutral (line-search while loops dominate either way) and
-        # the compile cost stops scaling with admm_iters (148 s at nadmm=2
-        # unrolled; the Adam path keeps the 6.4x-faster unrolled lowering).
+        # f32 residual/loss path), so the Armijo test still compares float32 losses.
+        # admm_unroll_lbfgs=False: JAX's lowering choice; no effect in the port.
         return base.replace(
             model=dataclasses.replace(base.model, compute_dtype="bfloat16"),
             optim=OptimConfig(optimizer="lbfgs", group_schedule=("ae2d", "ae1d", "khm")),

@@ -1,5 +1,6 @@
 """Overlapping-patch extraction (port of ``lshm_tpu/data/patches.py``): ``patchify`` on
-the host (numpy) and ``patchify_torch`` on a tensor.
+the host (numpy) and ``patchify_torch`` on a tensor, and its inverse
+``unpatchify_mean``.
 
 Spectrograms are cut into ``patch_size x patch_size`` tiles with 50% overlap (stride =
 patch_size // 2; reference: src/lofar_tools.py:157-173), emitted baseline-major: all
@@ -46,3 +47,21 @@ def patchify_torch(x: torch.Tensor, patch_size: int) -> tuple[torch.Tensor, tupl
     grid = x.unfold(1, patch_size, stride).unfold(2, patch_size, stride)
     out = grid.permute(0, 1, 2, 4, 5, 3).reshape(n * px * py, patch_size, patch_size, C)
     return out, (px, py)
+
+
+def unpatchify_mean(patches: torch.Tensor, n: int, px: int, py: int, T: int,
+                    F: int) -> torch.Tensor:
+    """Inverse of ``patchify_torch`` by averaging the overlaps:
+    [n * px * py, ps, ps, C] -> [n, T, F, C], the patches added in JAX's order."""
+    ps = patches.shape[1]
+    stride = ps // 2
+    C = patches.shape[-1]
+    grid = patches.reshape(n, px, py, ps, ps, C)
+    out = patches.new_zeros((n, T, F, C))
+    cnt = patches.new_zeros((n, T, F, 1))
+    for i in range(px):
+        for j in range(py):
+            rows, cols = slice(i * stride, i * stride + ps), slice(j * stride, j * stride + ps)
+            out[:, rows, cols] += grid[:, i, j]
+            cnt[:, rows, cols] += 1.0
+    return out / torch.clamp_min(cnt, 1.0)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 EPS = 1e-9  # reference: src/lofar_models.py:195
 
@@ -101,6 +102,64 @@ def mse_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """nn.MSELoss(reduction='sum') with float32 accumulation."""
     d = _f32(a) - _f32(b)
     return torch.sum(d * d)
+
+
+class _ReconADMM(torch.autograd.Function):
+    """``recon_admm_losses``: the four terms forward, the closed-form cotangents of x1,
+    x2 and x3 backward (none for x, the duals and rho)."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, x3, x, y1, y2, y3, rho):
+        ctx.save_for_backward(x1, x2, x3, x, y1, y2, y3)
+        ctx.rho = rho
+        numel = x.numel()
+        s = x1 + x2 + x3 - x
+        r1 = x - x1
+        x11 = 0.5 * r1
+        r2, r3 = x11 - x2, x11 - x3
+        y1, y2, y3 = (y.reshape(x.shape) for y in (y1, y2, y3))
+        term = lambda y, r: (torch.sum(y * r) + 0.5 * rho * torch.sum(r * r)) / numel
+        return torch.sum(s * s) / numel, term(y1, r1), term(y2, r2), term(y3, r3)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g0, g1, g2, g3):
+        x1, x2, x3, x, y1, y2, y3 = ctx.saved_tensors
+        rho, numel = ctx.rho, x.numel()
+        s = x1 + x2 + x3 - x
+        r1 = x - x1
+        x11 = 0.5 * r1
+        y1, y2, y3 = (y.reshape(x.shape) for y in (y1, y2, y3))
+        a1 = y1 + rho * r1
+        a2 = y2 + rho * (x11 - x2)
+        a3 = y3 + rho * (x11 - x3)
+        common = (2.0 * g0) * s
+        d_x1 = (common - g1 * a1 - (0.5 * g2) * a2 - (0.5 * g3) * a3) / numel
+        d_x2 = (common - g2 * a2) / numel
+        d_x3 = (common - g3 * a3) / numel
+        return d_x1, d_x2, d_x3, None, None, None, None, None
+
+
+def recon_admm_losses(x1, x2, x3, x, y1, y2, y3, rho):
+    """The reconstruction and ADMM loss block of the cascade objective in one pass
+    (JAX's ``recon_admm_losses``; reference: src/kharmonic_lofar.py:154-158):
+
+        loss0 = ||x1 + x2 + x3 - x||^2 / numel
+        loss1 = (y1 . r1 + rho/2 ||r1||^2) / numel,  r1 = x - x1
+        loss2 = (y2 . r2 + rho/2 ||r2||^2) / numel,  r2 = x11 - x2,  x11 = r1 / 2
+        loss3 = (y3 . r3 + rho/2 ||r3||^2) / numel,  r3 = x11 - x3
+
+    with a closed-form backward that reads each array once and writes the three
+    cotangents the AEs need:
+
+        d_x1 = (2 g0 s - g1 A1 - g2 A2 / 2 - g3 A3 / 2) / numel
+        d_x2 = (2 g0 s - g2 A2) / numel,   d_x3 = (2 g0 s - g3 A3) / numel
+
+    with s = x1 + x2 + x3 - x and A_k = y_k + rho r_k.  x and the duals are constants
+    of the objective and take no gradient.  ``y_k`` may be flat [numel] or shaped like
+    x.  As in JAX the terms are computed in the inputs' dtype, and nothing calls it:
+    the objective sums the terms one by one (``train/objective.py``)."""
+    return _ReconADMM.apply(x1, x2, x3, x, y1, y2, y3, rho)
 
 
 def admm_term(y: torch.Tensor, residual: torch.Tensor, rho: float) -> torch.Tensor:

@@ -37,7 +37,12 @@ import torch
 from torch import nn
 
 from lshm_tpu_torch.config import ModelConfig, check_model_supported
-from lshm_tpu_torch.models.autoencoders import AutoEncoder1D, AutoEncoder2D
+from lshm_tpu_torch.models.autoencoders import (
+    AutoEncoder1D,
+    AutoEncoder2D,
+    fused_dual_ae1d,
+    uv_harmonic_features,
+)
 from lshm_tpu_torch.models.khm import KHarmonicMeans
 
 
@@ -109,14 +114,17 @@ class CascadedAE(nn.Module):
                       generator=generator)
         ch = c.num_channels
         self.ae2d = AutoEncoder2D(latent_dim=c.latent_dim, channels=ch,
-                                  pallas_head=c.pallas_head, **common)
+                                  pallas_head=c.pallas_head, packed=c.packed_conv2d,
+                                  **common)
         if c.fourier_variant:
             # real + imag channels; no fused head (lshm_tpu/models/cascade.py:113-122)
             self.aef = AutoEncoder2D(latent_dim=c.latent_dim_fourier, channels=2 * ch,
-                                     **common)
+                                     packed=c.packed_conv2d, **common)
         else:
-            self.aeT = AutoEncoder1D(latent_dim=c.latent_dim_1d, channels=ch, **common)
-            self.aeF = AutoEncoder1D(latent_dim=c.latent_dim_1d, channels=ch, **common)
+            self.aeT = AutoEncoder1D(latent_dim=c.latent_dim_1d, channels=ch,
+                                     fast=c.fast_conv1d, **common)
+            self.aeF = AutoEncoder1D(latent_dim=c.latent_dim_1d, channels=ch,
+                                     fast=c.fast_conv1d, **common)
         self.khm = KHarmonicMeans(latent_dim=c.total_latent_dim,
                                   num_clusters=c.num_clusters, order=c.khm_order,
                                   generator=generator)
@@ -136,8 +144,16 @@ class CascadedAE(nn.Module):
                 Mu=torch.cat([mu, ymu], dim=-1), mu=mu, muT=ymu, muF=ymu[:, :0],
                 yf_in=yf_in, yf_out=yf_out,
             )
-        yyT, muT = like_x(*self.aeT(x11.reshape(n, h * w, ch), uv))
-        yyF, muF = like_x(*self.aeF(x11.transpose(1, 2).reshape(n, w * h, ch), uv))
+        sT = x11.reshape(n, h * w, ch)                      # time-major vectorisation
+        sF = x11.transpose(1, 2).reshape(n, w * h, ch)      # freq-major
+        if self.cfg.fuse_1d:
+            uvf = uv_harmonic_features(uv, self.cfg.harmonic_scales)
+            (yyT, muT), (yyF, muF) = fused_dual_ae1d(self.aeT, self.aeF, sT, sF, uvf,
+                                                     self.cfg.rica, self.aeT.dtype)
+            yyT, muT, yyF, muF = like_x(yyT, muT, yyF, muF)
+        else:
+            yyT, muT = like_x(*self.aeT(sT, uv))
+            yyF, muF = like_x(*self.aeF(sF, uv))
         x2 = yyT.reshape(n, h, w, ch)
         x3 = yyF.reshape(n, w, h, ch).transpose(1, 2)
         return CascadeOutputs(

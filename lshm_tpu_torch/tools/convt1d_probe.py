@@ -51,7 +51,7 @@ def _fwd_bwd(how: str, m, h, g):
     dt = torch.float32 if how == "library_f32" else BF16
     hh = h.to(dt).requires_grad_()
     w, b = m.weight.to(dt), m.bias.to(dt)
-    y = (_convt1d_taps(m, hh, w, b) if how == "taps"
+    y = (_convt1d_taps(hh, w, b) if how == "taps"
          else F.conv_transpose1d(hh, w, b, m.stride))
     return (y, *torch.autograd.grad(y, (hh, m.weight, m.bias), g.to(dt)))
 

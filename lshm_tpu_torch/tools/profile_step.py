@@ -1,11 +1,13 @@
 """Where the time of one full-width ADMM minibatch goes on the card.
 
     python -m lshm_tpu_torch.tools.profile_step [--out FILE] [--compute-dtype DTYPE]
+        [--set section.key=value ...]
 
 Builds the ``full_khm`` flagship configuration with the kernels on (420 patches of
 128 x 128 x 4 from a synthetic extract held in memory), in float32 or another compute
-dtype (``bfloat16_full``: the ``full_khm_bf16`` preset's), warms up with one minibatch,
-then:
+dtype (``bfloat16_full``: the ``full_khm_bf16`` preset's), with the CLI's ``--set``
+overrides on both paths (``--set model.packed_conv2d=2``: a rewrite's step), warms up
+with one minibatch, then:
 
 1. profiles one minibatch with ``torch.profiler`` and reports the device time by
    kernel and by category (the port's CUDA kernels, cuDNN convolutions, matrix
@@ -53,16 +55,18 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _config(kernels: bool, admm_iters: int, compute_dtype: str):
-    from lshm_tpu_torch.config import preset
+def _config(kernels: bool, admm_iters: int, compute_dtype: str, overrides=()):
+    from lshm_tpu_torch.config import _apply_overrides, check_supported, preset
 
-    cfg = preset("full_khm")
+    cfg = _apply_overrides(preset("full_khm"), overrides)
     model = (dict(khm_backend="pallas", pallas_head=True) if kernels
              else dict(khm_backend="xla", pallas_head=False))
     model["compute_dtype"] = compute_dtype
-    return dataclasses.replace(
+    cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **model),
         train=dataclasses.replace(cfg.train, admm_iters=admm_iters))
+    check_supported(cfg)
+    return cfg
 
 
 def _port_kernels(kern) -> list[dict]:
@@ -103,6 +107,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the full kernel table to this JSON file")
     ap.add_argument("--compute-dtype", default="float32",
                     help="model.compute_dtype (float32, bfloat16, bfloat16_full)")
+    ap.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
+                    help="config override on both paths (repeatable), as the CLI's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -115,7 +121,7 @@ def main() -> int:
     use_exact_float32()
     dev = torch.device("cuda")
     smi = card()
-    cfg_k = _config(True, ADMM_ITERS, args.compute_dtype)
+    cfg_k = _config(True, ADMM_ITERS, args.compute_dtype, args.set)
     tree = synth_extract(nstations=5, ntime=384, nfreq=512, seed=0)
     mb = MinibatchSampler([tree], ["0"], cfg_k.data, seed=0).sample()
     x, uv = torch.from_numpy(mb.x).to(dev), torch.from_numpy(mb.uv).to(dev)
@@ -123,7 +129,8 @@ def main() -> int:
 
     runs = {}
     for name in ("plain", "kernels"):
-        cfg = cfg_k if name == "kernels" else _config(False, ADMM_ITERS, args.compute_dtype)
+        cfg = cfg_k if name == "kernels" else _config(False, ADMM_ITERS, args.compute_dtype,
+                                                      args.set)
         runs[name] = (init_train_state(cfg, dev), make_train_step(cfg, mb.num_baselines))
         state, step = runs[name]
         step(state, x, uv, w)                           # warm-up (cuDNN autotune, build)
@@ -155,7 +162,7 @@ def main() -> int:
     table = sorted(({"name": n, "calls": c, "us": us, "category": _category(n)}
                     for n, (c, us) in by_name.items()), key=lambda r: -r["us"])
     prof_row = {
-        "phase": "profile", "compute_dtype": args.compute_dtype,
+        "phase": "profile", "compute_dtype": args.compute_dtype, "set": args.set,
         "admm_iters": ADMM_ITERS, "patches": int(x.shape[0]),
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share_profiled": (1.0 - busy_us / wall_us) if kern else None,

@@ -9,7 +9,9 @@ eagerly, so the ADMM loop is a Python loop whichever of ``train.admm_unroll`` an
 lowered, with the same math); metrics come back as stacked [admm_iters] tensors per
 term, like the JAX steps.  Under ``compute_dtype="bfloat16_full"`` both steps cast the
 minibatch to bf16 once at entry (``_input_cast``).  Under ``model.fourier_variant`` the
-second dual is shaped like the Fourier residual (``Duals.zeros_like``).
+second dual is shaped like the Fourier residual (``Duals.zeros_like``).  Under
+``train.remat`` the forward is recomputed in the backward (``_remat``) at JAX's three
+places: the unfused objective, the fused step's forward and the L-BFGS closure.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable
 
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from lshm_tpu_torch.config import Config
 from lshm_tpu_torch.models import CascadedAE
@@ -55,6 +58,17 @@ def _input_cast(cfg: Config) -> Callable:
     if cfg.model.compute_dtype == "bfloat16_full":
         return lambda a: a.to(torch.bfloat16)
     return lambda a: a
+
+
+def _remat(cfg: Config, fn: Callable) -> Callable:
+    """``fn`` under ``train.remat`` (JAX's ``jax.checkpoint``): autograd keeps only its
+    inputs and runs it again in the backward, so its kernels (K1 and K3 in the
+    objective) launch once more per backward.  The forward draws no random numbers, so
+    no RNG state is stashed."""
+    if not cfg.train.remat:
+        return fn
+    return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False,
+                                          preserve_rng_state=False, **kw)
 
 
 def _loss_kw(cfg: Config) -> dict:
@@ -103,6 +117,8 @@ def make_train_step(cfg: Config, num_groups: int, fused: bool = False,
     nadmm = cfg.train.admm_iters
     kw = _loss_kw(cfg)
     cast_in = _input_cast(cfg)
+    objective = _remat(cfg, cascade_objective)
+    forward = _remat(cfg, lambda model, x, uv: model(x, uv))
 
     def update(opt, loss):
         loss.backward()
@@ -118,14 +134,14 @@ def make_train_step(cfg: Config, num_groups: int, fused: bool = False,
         for t in range(nadmm):
             model.zero_grad(set_to_none=True)
             if fused:
-                out = model(x, uv)
+                out = forward(model, x, uv)
                 if t > 0:
                     duals = dual_update_from_outputs(out, x, duals, w.rho)
                 loss, metrics = loss_from_outputs(out, model.khm.M, x, duals, w,
                                                   num_groups, **kw)
                 update(opt, loss)
             else:
-                loss, metrics = cascade_objective(model, x, uv, duals, w, num_groups, **kw)
+                loss, metrics = objective(model, x, uv, duals, w, num_groups, **kw)
                 update(opt, loss)
                 duals = dual_update(model, x, uv, duals, w.rho)
             history.append({k: v.detach() for k, v in metrics.items()})
@@ -160,7 +176,7 @@ def init_lbfgs_train_state(cfg: Config, device: torch.device | str,
 def lbfgs_objective(cfg: Config, num_groups: int) -> Callable:
     """The L-BFGS closure: (params, model, frozen, x, uv, duals, w) -> loss, the model
     evaluated on ``params`` (the active group's parameters) and ``frozen`` (the others,
-    detached)."""
+    detached); under ``train.remat`` its forward is recomputed in the backward."""
     kw = _loss_kw(cfg)
 
     def value_fn(params, model, frozen, x, uv, duals, w):
@@ -168,7 +184,7 @@ def lbfgs_objective(cfg: Config, num_groups: int) -> Callable:
         out = functional_call(model, full, (x, uv))
         return loss_from_outputs(out, full["khm.M"], x, duals, w, num_groups, **kw)[0]
 
-    return value_fn
+    return _remat(cfg, value_fn)
 
 
 def make_lbfgs_train_step(cfg: Config, num_groups: int, group: str = "all",

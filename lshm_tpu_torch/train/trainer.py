@@ -322,3 +322,11 @@ def _to_device(obj, device: torch.device):
     if isinstance(obj, dict):
         return {k: _to_device(v, device) for k, v in obj.items()}
     return obj
+
+
+def train_from_config(cfg: Config, device: str | torch.device | None = None) -> Trainer:
+    """A ``Trainer`` on ``cfg`` run over the H5 files under ``cfg.data.data_dir``
+    (JAX's ``train_from_config``); ``device=None`` means the card."""
+    t = Trainer(cfg, device=device)
+    t.run()
+    return t

@@ -255,7 +255,7 @@ def test_a_half_given_multi_host_configuration_exits_with_error(flags, monkeypat
     assert str(e.value.code).startswith("error: incomplete multi-host configuration")
 
 
-@pytest.mark.parametrize("override", ["foo.bar=1", "model.fuse_1d=true",
+@pytest.mark.parametrize("override", ["foo.bar=1", "model.packed_conv2d=two",
                                       "model.compute_dtype=float16"])
 def test_a_bad_set_exits_with_error(override):
     with pytest.raises(SystemExit) as e:

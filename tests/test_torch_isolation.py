@@ -209,24 +209,8 @@ def test_kernel_wrappers_refuse_wrong_shapes():
         conv_head.head_forward(x, w0, b0, w1[:6].contiguous(), b1)
 
 
-UNPORTED = {
-    "model.fuse_1d": lambda c: _rep(c, "model", fuse_1d=True),
-    "model.packed_conv2d": lambda c: _rep(c, "model", packed_conv2d=1),
-    "train.remat": lambda c: _rep(c, "train", remat=True),
-}
-
-
 def _rep(cfg, section, **kw):
     return dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
-
-
-@pytest.mark.parametrize("field", sorted(UNPORTED))
-def test_unported_fields_raise(field):
-    cfg = UNPORTED[field](tc.Config())
-    with pytest.raises(NotImplementedError, match=field):
-        tc.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=field):
-        Trainer(cfg, device="cpu")
 
 
 def _lbfgs_f32():

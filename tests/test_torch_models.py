@@ -128,9 +128,3 @@ def test_khm_head_matches_flax():
         assert _rel(got.detach().numpy(), np.asarray(want)) < 1e-5
     np.testing.assert_array_equal(head.assign(Xt).numpy(),
                                   np.asarray(jhead.apply(jp, Xj, method=jhead.assign)))
-
-
-def test_unported_model_fields_raise():
-    for kw in (dict(fuse_1d=True), dict(fast_conv1d=True), dict(packed_conv2d=1)):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            CascadedAE(ModelConfig(**kw))

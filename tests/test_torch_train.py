@@ -63,13 +63,20 @@ def jax_reference(request):
     return group, init_sd, jax.device_get(metrics), jax.device_get(new_state.params)
 
 
-@pytest.mark.parametrize("kernels", [True, False], ids=["kernels", "plain"])
-def test_step_matches_jax(jax_reference, kernels):
-    """kernels=True: the port's defaults (fused KHM loss, fused conv head — their plain
-    versions on the CPU); False: the plain XLA-equivalent expressions."""
+STEP_PATHS = {"kernels": {}, "plain": dict(khm_backend="xla", pallas_head=False),
+              "rewrites": dict(fuse_1d=True, fast_conv1d=True, packed_conv2d=2)}
+
+
+@pytest.mark.parametrize("path", list(STEP_PATHS))
+def test_step_matches_jax(jax_reference, path):
+    """kernels: the port's defaults (fused KHM loss, fused conv head — their plain
+    versions on the CPU); plain: the plain XLA-equivalent expressions; rewrites: the
+    defaults with every exact rewrite and ``train.remat`` on, held to the same JAX
+    step (the rewrites compute the same sums)."""
     group, init_sd, want_metrics, want_params = jax_reference
-    model_kw = {} if kernels else dict(khm_backend="xla", pallas_head=False)
-    cfg = _cfg(tc, **model_kw)
+    cfg = _cfg(tc, **STEP_PATHS[path])
+    if path == "rewrites":
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=True))
     state = init_train_state(cfg, "cpu", group)
     state.model.load_state_dict(init_sd)
     x, uv = _batch()
