@@ -29,6 +29,7 @@ from lshm_tpu_torch.data.h5io import (Source, compute_uv, native_choice, pols_fo
                                       read_baseline_channels, read_baseline_raw,
                                       read_metadata)
 from lshm_tpu_torch.data.patches import patch_grid_shape, patchify
+from lshm_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -313,8 +314,10 @@ class PrefetchIterator:
 
     def _item(self) -> tuple[Minibatch, Any]:
         """The next minibatch on the device, and the event ``take`` waits for."""
-        mb = self._sampler.sample()
-        (x, uv), ready = self._staging.put(mb.x, mb.uv)
+        with span("prefetch.sample"):
+            mb = self._sampler.sample()
+        with span("prefetch.stage"):
+            (x, uv), ready = self._staging.put(mb.x, mb.uv)
         return Minibatch(x=x, uv=uv, patchx=mb.patchx, patchy=mb.patchy,
                          num_baselines=mb.num_baselines), ready
 
@@ -384,9 +387,12 @@ class DeviceDecodePrefetcher(PrefetchIterator):
         return x, uv
 
     def _item(self) -> tuple[Minibatch, Any]:
-        raw = self._sampler.sample_raw()
+        with span("prefetch.sample"):
+            raw = self._sampler.sample_raw()
         ppb = raw.patchx * raw.patchy * (2 if self._sampler.cfg.augment else 1)
-        (x, uv), ready = self._staging.put(raw.vis, raw.scales, raw.flip_flags,
-                                           np.repeat(raw.uv, ppb, axis=0), then=self._decode)
+        with span("prefetch.stage"):
+            (x, uv), ready = self._staging.put(raw.vis, raw.scales, raw.flip_flags,
+                                               np.repeat(raw.uv, ppb, axis=0),
+                                               then=self._decode)
         return Minibatch(x=x, uv=uv, patchx=raw.patchx, patchy=raw.patchy,
                          num_baselines=raw.num_baselines), ready

@@ -11,7 +11,10 @@ term, like the JAX steps.  Under ``compute_dtype="bfloat16_full"`` both steps ca
 minibatch to bf16 once at entry (``_input_cast``).  Under ``model.fourier_variant`` the
 second dual is shaped like the Fourier residual (``Duals.zeros_like``).  Under
 ``train.remat`` the forward is recomputed in the backward (``_remat``) at JAX's three
-places: the unfused objective, the fused step's forward and the L-BFGS closure.
+places: the unfused objective, the fused step's forward and the L-BFGS closure.  Under
+a profiler each Adam ADMM iteration records the spans ``admm.forward`` (in the fused
+step with the dual update), ``admm.backward``, ``admm.optimizer`` and, unfused,
+``admm.dual`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from lshm_tpu_torch.train.objective import (
     metrics_and_dual_update,
 )
 from lshm_tpu_torch.train.schedule import group_mask
+from lshm_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -121,10 +125,12 @@ def make_train_step(cfg: Config, num_groups: int, fused: bool = False,
     forward = _remat(cfg, lambda model, x, uv: model(x, uv))
 
     def update(opt, loss):
-        loss.backward()
-        if grad_mean is not None:
-            grad_mean([p.grad for g in opt.param_groups for p in g["params"]])
-        opt.step()
+        with span("admm.backward"):
+            loss.backward()
+        with span("admm.optimizer"):
+            if grad_mean is not None:
+                grad_mean([p.grad for g in opt.param_groups for p in g["params"]])
+            opt.step()
 
     def train_step(state: TrainState, x: torch.Tensor, uv: torch.Tensor, w: LossWeights):
         model, opt = state.model, state.opt
@@ -134,16 +140,19 @@ def make_train_step(cfg: Config, num_groups: int, fused: bool = False,
         for t in range(nadmm):
             model.zero_grad(set_to_none=True)
             if fused:
-                out = forward(model, x, uv)
-                if t > 0:
-                    duals = dual_update_from_outputs(out, x, duals, w.rho)
-                loss, metrics = loss_from_outputs(out, model.khm.M, x, duals, w,
-                                                  num_groups, **kw)
+                with span("admm.forward"):
+                    out = forward(model, x, uv)
+                    if t > 0:
+                        duals = dual_update_from_outputs(out, x, duals, w.rho)
+                    loss, metrics = loss_from_outputs(out, model.khm.M, x, duals, w,
+                                                      num_groups, **kw)
                 update(opt, loss)
             else:
-                loss, metrics = objective(model, x, uv, duals, w, num_groups, **kw)
+                with span("admm.forward"):
+                    loss, metrics = objective(model, x, uv, duals, w, num_groups, **kw)
                 update(opt, loss)
-                duals = dual_update(model, x, uv, duals, w.rho)
+                with span("admm.dual"):
+                    duals = dual_update(model, x, uv, duals, w.rho)
             history.append({k: v.detach() for k, v in metrics.items()})
         state.step += 1
         return state, _stack(history)

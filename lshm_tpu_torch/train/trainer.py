@@ -19,6 +19,12 @@ parameters stay bit-identical.  Under data parallelism the ranks decode on the h
 as JAX does under a mesh.  Every rank enters ``save``; rank 0 writes and the ranks
 meet at a barrier after it.  The logger logs the reduced metrics on every rank: the
 caller gives a JSONL path to one rank only (the CLI gives it to rank 0).
+
+Under a profiler each minibatch's stages are spans (``utils/spans.py``):
+``trainer.fetch`` (the prefetcher's next minibatch and the stream join, or the sample
+and its placement), ``trainer.prepare`` (the optimizer state and the step),
+``trainer.settle`` (the delayed check, with ``trainer.log`` around the logger),
+``trainer.snapshot``, ``trainer.step`` and ``trainer.save``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from lshm_tpu_torch.train.step import (
 )
 from lshm_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from lshm_tpu_torch.utils.metrics import MetricLogger
+from lshm_tpu_torch.utils.spans import span
 
 
 class Trainer:
@@ -178,33 +185,42 @@ class Trainer:
                 """One-step-delayed non-finite guard: checked after the next minibatch
                 is ready, by when the previous step has usually finished."""
                 snap, metrics, pit, patches = pending
-                if not np.isfinite(float(metrics["loss"][-1])):
-                    self._restore(snap)
-                    print(f"warning: non-finite loss at epoch {epoch} iter {pit}; "
-                          "step reverted")
-                elif pit % max(cfg.train.log_every, 1) == 0:
-                    self.logger.log_step(epoch, pit, metrics, patches=patches)
+                with span("trainer.settle"):
+                    if not np.isfinite(float(metrics["loss"][-1])):
+                        self._restore(snap)
+                        print(f"warning: non-finite loss at epoch {epoch} iter {pit}; "
+                              "step reverted")
+                    elif pit % max(cfg.train.log_every, 1) == 0:
+                        with span("trainer.log"):
+                            self.logger.log_step(epoch, pit, metrics, patches=patches)
 
             try:
                 source = self._source(sampler)
                 for it in range(first_iter, cfg.train.iters_per_epoch):
-                    if source is not None:
-                        mb = next(source)
-                        x, uv = mb.x, mb.uv
-                    else:
-                        mb = sampler.sample()
-                        x, uv = place(mb.x), place(mb.uv)
-                    self._ensure_state(kind, group)
-                    step = self._step(kind, group, mb.num_baselines)
+                    with span("trainer.fetch"):
+                        if source is not None:
+                            mb = next(source)
+                            x, uv = mb.x, mb.uv
+                        else:
+                            mb = sampler.sample()
+                            x, uv = place(mb.x), place(mb.uv)
+                    with span("trainer.prepare"):
+                        self._ensure_state(kind, group)
+                        step = self._step(kind, group, mb.num_baselines)
                     if pending is not None:
                         settle(pending)
-                    snap = self._snapshot() if cfg.train.skip_nonfinite else None
-                    self.state, metrics = step(self.state, x, uv, w)
+                    snap = None
+                    if cfg.train.skip_nonfinite:
+                        with span("trainer.snapshot"):
+                            snap = self._snapshot()
+                    with span("trainer.step"):
+                        self.state, metrics = step(self.state, x, uv, w)
                     patches = x.shape[0] * self.world_size     # the global batch
                     if cfg.train.skip_nonfinite:
                         pending = (snap, metrics, it, patches)
                     elif it % max(cfg.train.log_every, 1) == 0:
-                        self.logger.log_step(epoch, it, metrics, patches=patches)
+                        with span("trainer.log"):
+                            self.logger.log_step(epoch, it, metrics, patches=patches)
                     every = cfg.train.save_every_iters
                     if (every and cfg.train.checkpoint_dir and (it + 1) % every == 0
                             and it + 1 < cfg.train.iters_per_epoch):
@@ -270,17 +286,18 @@ class Trainer:
         if self.state is None:
             print("warning: nothing to checkpoint (no training has run); skipping save")
             return
-        if self.rank == 0:
-            s = self.state
-            state = {"params": s.model.state_dict()}
-            if self._opt_kind is not None:
-                state.update(optimizer=s.opt.state_dict(), step=s.step,
-                             opt_kind=list(self._opt_kind))
-            save_checkpoint(ckpt_dir, state, step,
-                            extras={"config": self.cfg.to_dict(), "epoch": epoch,
-                                    "iter": int(iter_in_epoch)})
-        if self._mean is not None:
-            parallel.barrier()
+        with span("trainer.save"):
+            if self.rank == 0:
+                s = self.state
+                state = {"params": s.model.state_dict()}
+                if self._opt_kind is not None:
+                    state.update(optimizer=s.opt.state_dict(), step=s.step,
+                                 opt_kind=list(self._opt_kind))
+                save_checkpoint(ckpt_dir, state, step,
+                                extras={"config": self.cfg.to_dict(), "epoch": epoch,
+                                        "iter": int(iter_in_epoch)})
+            if self._mean is not None:
+                parallel.barrier()
 
     def load(self, ckpt_dir: str, step: int | None = None) -> None:
         """Restore a checkpoint (default: the latest step).  A file with ``optimizer``

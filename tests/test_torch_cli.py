@@ -139,6 +139,8 @@ def test_profile_dir_writes_a_trace(trained):
     with open(root / "prof" / "trace_epoch_0.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    # the program's spans (lshm_tpu_torch/utils/spans.py) are in it too
+    assert {"trainer.step", "admm.backward"} <= {e.get("name") for e in events}
 
 
 def _reference_files(tmp_path, seed=0):
