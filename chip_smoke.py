@@ -189,17 +189,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 form (values 1e-6, gradients 1e-5), ms forward + backward of each;
                 (e) the Trainer with every rewrite and remat, 1 epoch x 2 minibatches:
                 K1-K4 40, 20, 60, 20
+  22. cuda_graph      the Adam step on CUDA graphs (train/step.py) against the eager
+                step: 3 minibatches x 10 ADMM iterations of a Trainer for full_khm,
+                full_khm_bf16 and fourier_cascade, eager twice (the card's run-to-run
+                distance), then on graphs: parameters and logged losses within twice
+                that distance (bit for bit where it is 0), K1-K4 launching as often,
+                1 capture, 40 replays and 10 eager iterations; ms of each run's last
+                minibatch; full_khm's step on minibatches of 12 and 6 baselines in
+                turns, six, eager twice and on graphs (within twice the run-to-run
+                distance; 2 captures, 80 replays, 20 eager iterations); then a
+                full_khm graph run under --profile-dir whose trace holds K1-K4 as
+                often as their counters say, and cuDNN's kernels
 Each path (5, 7, 8, 9, 10, 11, 13, 14, the exported calls of 15, the CLI's train,
 resume and exported call, 18, 19's graph builds, trainings and CLI calls, 20's steps
-and trainers, and 21's steps, closures and trainer) is driven with the launch counts
-set to 0 just before it and read just after.  Then a seconds line, the kernels table as one JSON line, the
-card's name and power limit, and {"ok": true, "device": {...}} as the last line.
+and trainers, 21's steps, closures and trainer, and 22's trainers) is driven with the
+launch counts set to 0 just before it and read just after.  From a Trainer's second
+minibatch on, the Adam steps run on CUDA graphs (train/step.py), whose replays add
+the launches their capture counted.  Then a seconds line, the kernels table as one
+JSON line, the card's name and power limit, and {"ok": true, "device": {...}} as the
+last line.
 Without a CUDA device it exits 2 before printing any result.  It imports nothing of JAX
 or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -3017,6 +3032,165 @@ def rewrites_phase(dev, tree, tmpdir: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- phase 22
+
+GRAPH_PRESETS = (("full_khm", ADAM_PATH), ("full_khm_bf16", BF16_PATH),
+                 ("fourier_cascade", ADAM_PATH))
+
+
+@contextlib.contextmanager
+def _graphs_on(graphs: bool):
+    """Inside the block the Adam step runs on CUDA graphs or, with ``graphs=False``,
+    eagerly (``train/step.py::graphs_engage`` answering False)."""
+    from lshm_tpu_torch.train import step as step_mod
+
+    engage = step_mod.graphs_engage
+    if not graphs:
+        step_mod.graphs_engage = lambda x: False
+    try:
+        yield
+    finally:
+        step_mod.graphs_engage = engage
+
+
+def _trainer_run(tree, tmpdir: str, name: str, graphs: bool, profile_dir=None) -> dict:
+    """One ``trainer_phase``-sized run of preset ``name`` (3 minibatches x 10 ADMM
+    iterations, no checkpoint), on CUDA graphs or eagerly (``_graphs_on``): the logger's
+    losses, the parameters, K1-K6's launches, ``graph_counts`` and the ms between the
+    last two records (the last minibatch: on graphs a replayed one)."""
+    import dataclasses
+
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import Trainer
+    from lshm_tpu_torch.train import step as step_mod
+    from lshm_tpu_torch.utils import MetricLogger
+
+    cfg = flagship_config(tmpdir, name)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, checkpoint_dir=""))
+    sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+    logger = MetricLogger(echo=False)
+    with _graphs_on(graphs):
+        trainer = Trainer(cfg, logger=logger, profile_dir=profile_dir)
+        reset_launches()
+        step_mod.reset_graph_counts()
+        trainer.run(sampler)
+        torch.cuda.synchronize()
+    hist = logger.history
+    return {"losses": torch.tensor([[r[k] for k in sorted(r) if k not in
+                                     ("epoch", "iter", "t", "patches")] for r in hist],
+                                   dtype=torch.float64),
+            "params": {k: v.detach().clone()
+                       for k, v in trainer.model.state_dict().items()},
+            "launches": launch_counts(), "graph_counts": step_mod.graph_counts(),
+            "ms_last_minibatch": (hist[-1]["t"] - hist[-2]["t"]) * 1e3}
+
+
+def _two_shapes_run(tree, tmpdir: str, graphs: bool) -> dict:
+    """full_khm's Adam step (``flagship_config``) on minibatches of two shapes in
+    turns, six: the sampler's first minibatch of 12 baselines and its first 6
+    baselines (on graphs: eager, eager, capture, capture, replay, replay), eagerly
+    with ``graphs=False`` (``_graphs_on``).  The parameters after, each minibatch's
+    metrics, ``graph_counts`` and the peak of allocated memory (GB)."""
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.train import init_train_state, make_train_step
+    from lshm_tpu_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    cfg = flagship_config(tmpdir)
+    sampler = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed)
+    sampler.reseed(0)
+    mb = sampler.sample()
+    x, uv = (torch.from_numpy(a).to(dev) for a in (mb.x, mb.uv))
+    nb = mb.num_baselines
+    n = x.shape[0] // nb * (nb // 2)                 # baseline-major: the first half
+    shapes = [(x, uv, nb), (x[:n].contiguous(), uv[:n].contiguous(), nb // 2)]
+    w = _loss_weights(cfg)
+    with _graphs_on(graphs):
+        state = init_train_state(cfg, dev)
+        step_mod.reset_graph_counts()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+        for xb, uvb, g in shapes * 3:
+            state, m = make_train_step(cfg, g)(state, xb, uvb, w)
+            metrics.append(torch.stack([m[k] for k in sorted(m)]).double())
+        torch.cuda.synchronize()
+    return {"params": {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            "losses": torch.stack(metrics).cpu(), "graph_counts": step_mod.graph_counts(),
+            "keys": len(state.graphs), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def cuda_graph_phase(tree, tmpdir: str) -> dict:
+    """The Adam step on CUDA graphs against the eager step, three minibatches of a
+    Trainer for each of full_khm (float32), full_khm_bf16 (bfloat16_full) and
+    fourier_cascade: eager twice (the card's run-to-run distance), then on graphs.
+    The graph run lies no farther from the first eager run than twice that distance,
+    in the parameters and in each minibatch's logged losses (bit for bit where the
+    two eager runs are); K1-K4 launch as often; one capture, 2 x 10 x 2 replays and
+    the first minibatch's 10 eager iterations.  Then full_khm's step on two shapes in
+    turns (``_two_shapes_run``), held the same way, with a capture and a pair of
+    graphs per shape and no eager iteration after each shape's first minibatch.  Then
+    a full_khm graph run under
+    ``--profile-dir`` (the profiler on before the capture): its trace holds K1-K4's
+    kernels as often as their counters say, and cuDNN's."""
+    import json
+
+    row = {"phase": "cuda_graph"}
+    bad = []
+    for name, path in GRAPH_PRESETS:
+        eager, again, graphs = (_trainer_run(tree, tmpdir, name, g)
+                                for g in (False, False, True))
+        run_to_run = max(_state_distance(again["params"], eager["params"]),
+                         rel_err(again["losses"], eager["losses"]))
+        gap = max(_state_distance(graphs["params"], eager["params"]),
+                  rel_err(graphs["losses"], eager["losses"]))
+        launches = {k: graphs["launches"][k] for k in path}
+        row[name] = {"run_to_run": run_to_run, "graphs_vs_eager": gap,
+                     "launches": launches, "graph_counts": graphs["graph_counts"],
+                     "eager_graph_counts": eager["graph_counts"],
+                     "ms_last_minibatch": {"eager": eager["ms_last_minibatch"],
+                                           "graphs": graphs["ms_last_minibatch"]}}
+        if (gap != 0.0 if run_to_run == 0.0 else gap > 2 * run_to_run):
+            bad.append(f"{name}: graphs {gap} from eager (run to run {run_to_run})")
+        if launches != {k: eager["launches"][k] for k in path}:
+            bad.append(f"{name}: launches {launches} against eager {eager['launches']}")
+        if graphs["graph_counts"] != {"captures": 1, "replays": 40, "eager_iters": 10}:
+            bad.append(f"{name}: graph counts {graphs['graph_counts']}")
+        if eager["graph_counts"] != {"captures": 0, "replays": 0, "eager_iters": 30}:
+            bad.append(f"{name}: eager counts {eager['graph_counts']}")
+
+    eager, again, graphs = (_two_shapes_run(tree, tmpdir, g) for g in (False, False, True))
+    run_to_run = max(_state_distance(again["params"], eager["params"]),
+                     rel_err(again["losses"], eager["losses"]))
+    gap = max(_state_distance(graphs["params"], eager["params"]),
+              rel_err(graphs["losses"], eager["losses"]))
+    row["two_shapes"] = {"run_to_run": run_to_run, "graphs_vs_eager": gap,
+                         "graph_counts": graphs["graph_counts"], "keys": graphs["keys"],
+                         "peak_gb": {"eager": eager["peak_gb"], "graphs": graphs["peak_gb"]}}
+    if (gap != 0.0 if run_to_run == 0.0 else gap > 2 * run_to_run):
+        bad.append(f"two shapes: graphs {gap} from eager (run to run {run_to_run})")
+    if (graphs["graph_counts"] != {"captures": 2, "replays": 80, "eager_iters": 20}
+            or graphs["keys"] != 2):
+        bad.append(f"two shapes: {row['two_shapes']}")
+
+    prof = os.path.join(tmpdir, "graph_profile")
+    traced = _trainer_run(tree, tmpdir, "full_khm", True, profile_dir=prof)
+    with open(os.path.join(prof, "trace_epoch_0.json")) as f:
+        kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    named = {k: sum(n in name for name in kernels) for k, n in TRACE_NAMES.items()}
+    cudnn = sum("cudnn" in name or "xmma" in name for name in kernels)
+    row["profile"] = {"kernel_events": len(kernels), "named": named, "cudnn": cudnn,
+                      "launches": {k: traced["launches"][k] for k in ADAM_PATH},
+                      "graph_counts": traced["graph_counts"]}
+    emit(row)
+    if named != row["profile"]["launches"] or cudnn == 0:
+        bad.append(f"the trace of a graph run: {row['profile']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return row
+
+
 def data_parallel_child(mode: str, root: str, *args: str) -> int:
     """The entry of a child of phase 20 (``_dp_argv``)."""
     sys.path.insert(0, root)
@@ -3104,6 +3278,7 @@ def main() -> int:
     timed("rica", in_tmpdir, lambda d: rica_phase(tree, d))
     dp = timed("data_parallel", in_tmpdir, lambda d: data_parallel_phase(dev, tree, d))
     rewrites = timed("rewrites", in_tmpdir, lambda d: rewrites_phase(dev, tree, d))
+    timed("cuda_graph", in_tmpdir, lambda d: cuda_graph_phase(tree, d))
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
 
     # launches on each kernel's own path: K1-K4 the Adam trainer (the main path; K1/K2

@@ -2,7 +2,8 @@
 
 Each kernel module keeps a plain PyTorch version beside its wrapper and a ``launches``
 dict counting the CUDA launches; ``reset_launches`` and ``launch_counts`` let a run
-show that the main path went through the kernels.
+show that the main path went through the kernels, and ``add_launches`` lets a CUDA
+graph's replay count the launches its capture recorded.
 """
 
 from lshm_tpu_torch.kernels import conv0, conv_head, khm
@@ -22,4 +23,12 @@ def launch_counts() -> dict[str, int]:
     return {k: v for mod in _MODULES for k, v in mod.launches.items()}
 
 
-__all__ = ["enc_head", "khm_loss_fused", "reset_launches", "launch_counts"]
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` ({counter: launches}, negative to take back) to the counters."""
+    for mod in _MODULES:
+        for k in mod.launches:
+            mod.launches[k] += counts.get(k, 0)
+
+
+__all__ = ["enc_head", "khm_loss_fused", "reset_launches", "launch_counts",
+           "add_launches"]

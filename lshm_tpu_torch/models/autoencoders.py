@@ -23,6 +23,7 @@ which picks dtypes op by op.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -61,10 +62,20 @@ def init_flax_like_(module: nn.Module, generator: torch.Generator | None) -> Non
             m.bias.zero_()
 
 
+@functools.cache
+def _scales(scales: tuple[float, ...], dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """The harmonic scales as a tensor on ``device``, made once: a copy from the host
+    in every forward would synchronise the host with the card, and could not be
+    captured in a CUDA graph."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(scales, dtype=dtype, device=device)
+
+
 def uv_harmonic_features(uv: torch.Tensor, scales: Sequence[float]) -> torch.Tensor:
     """Kron-harmonic embedding of (u, v): [N, 2] -> [N, 4 * len(scales)]
     (reference: src/lofar_models.py:60-62)."""
-    s = torch.as_tensor(scales, dtype=uv.dtype, device=uv.device)
+    s = _scales(tuple(scales), uv.dtype, uv.device)
     k = (s[None, :, None] * uv[:, None, :]).reshape(uv.shape[0], -1)     # [N, 2H]
     return torch.cat([torch.sin(k), torch.cos(k)], dim=-1)              # [N, 4H]
 
@@ -185,19 +196,18 @@ def conv2d_s2_packed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv2d(xp, wp)
 
 
-_PHASE_TAPS = ((3, 1), (2, 0))   # kernel row (column) of output phase a at window tap p
-
-
 def convt2d_s2_packed(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """ConvTranspose2d(k=4, s=2, p=1) of NCHW ``z`` with IOHW ``w`` by phase packing
     (``model.packed_conv2d``): output pixel (2i + a, 2j + b) takes kernel rows
-    ``_PHASE_TAPS[a]`` and columns ``_PHASE_TAPS[b]`` over input rows i - 1 + a + p
-    and columns j - 1 + b + q, so one k=2, s=1 VALID conv of z padded by one emits
-    the four phases as 4F channels, and a shifted depth-to-space gathers them."""
+    (3 - a, 1 - a) and columns (3 - b, 1 - b) over input rows i - 1 + a + p and
+    columns j - 1 + b + q, so one k=2, s=1 VALID conv of z padded by one emits the
+    four phases as 4F channels, and a shifted depth-to-space gathers them.  The taps
+    are strided views of the flipped kernel: an index list would be copied from the
+    host, which a CUDA graph cannot capture."""
     n, c, h, wd = z.shape
     f = w.shape[1]
-    rows = [w[:, :, list(t)] for t in _PHASE_TAPS]
-    wy = torch.cat([rows[a][:, :, :, list(_PHASE_TAPS[b])].transpose(0, 1)
+    rows = [w.flip(2)[:, :, a::2] for a in (0, 1)]            # rows 3 - a, 1 - a
+    wy = torch.cat([rows[a].flip(3)[:, :, :, b::2].transpose(0, 1)
                     for a in (0, 1) for b in (0, 1)])          # [4F, C, 2, 2]
     y = F.conv2d(F.pad(z, (1, 1, 1, 1)), wy)                   # [N, 4F, h+1, w+1]
     phase = lambda a, b: y[:, (2 * a + b) * f:(2 * a + b + 1) * f, a:a + h, b:b + wd]

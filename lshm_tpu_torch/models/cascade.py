@@ -72,13 +72,17 @@ def dft_mats(n: int, dtype: torch.dtype, device: torch.device
     package).  j k is reduced mod n in integers before the trigonometry.  Each step is
     rounded to ``dtype`` where JAX's computes in it: the angle's scale, the angle, the
     cos and sin, 1/sqrt(n) and the products (float32 holds each bf16 product exactly,
-    so rounding it once is the bf16 operation).  Built once per (n, dtype, device)."""
+    so rounding it once is the bf16 operation).  Built once per (n, dtype, device), as
+    normal tensors even under ``inference_mode`` (an evaluation's), so that a later
+    training step can save them for its backward."""
     rnd = lambda t: t.to(dtype).float()
-    k = torch.arange(n)
-    m = rnd(torch.outer(k, k) % n)
-    ang = rnd(m * rnd(torch.tensor(-2.0 * math.pi / n)))
-    s = rnd(1.0 / rnd(torch.sqrt(rnd(torch.tensor(float(n))))))
-    return tuple(rnd(rnd(f(ang)) * s).to(dtype).to(device) for f in (torch.cos, torch.sin))
+    with torch.inference_mode(False):
+        k = torch.arange(n)
+        m = rnd(torch.outer(k, k) % n)
+        ang = rnd(m * rnd(torch.tensor(-2.0 * math.pi / n)))
+        s = rnd(1.0 / rnd(torch.sqrt(rnd(torch.tensor(float(n))))))
+        return tuple(rnd(rnd(f(ang)) * s).to(dtype).to(device)
+                     for f in (torch.cos, torch.sin))
 
 
 def fft2_shifted(x: torch.Tensor) -> torch.Tensor:

@@ -112,18 +112,25 @@ def cascade_objective(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
                              khm_backend=khm_backend)
 
 
+def _residuals(out, x: torch.Tensor):
+    """The constraints' residuals, one per dual in order, computed as they are taken:
+    x - x1, then x11 - x2 and x11 - x3, or for the Fourier outputs yf_in - yf_out (its
+    empty y3 has none)."""
+    yield x - out.x1
+    if out.yf_in is not None:
+        yield out.yf_in - out.yf_out
+    else:
+        yield out.x11 - out.x2
+        yield out.x11 - out.x3
+
+
 @torch.no_grad()
 def dual_update_from_outputs(out, x: torch.Tensor, duals: Duals, rho: float) -> Duals:
     """y_k <- y_k + rho * residual_k computed from an existing forward's outputs
     (detached: the duals take no gradient)."""
-    y1 = duals.y1 + rho * (x - out.x1)
-    if out.yf_in is not None:
-        return Duals(y1=y1, y2=duals.y2 + rho * (out.yf_in - out.yf_out), y3=duals.y3)
-    return Duals(
-        y1=y1,
-        y2=duals.y2 + rho * (out.x11 - out.x2),
-        y3=duals.y3 + rho * (out.x11 - out.x3),
-    )
+    ys = (duals.y1, duals.y2, duals.y3)
+    new = [y + rho * r for y, r in zip(ys, _residuals(out, x))]
+    return Duals(*new, *ys[len(new):])
 
 
 @torch.no_grad()
@@ -131,6 +138,15 @@ def dual_update(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals, rho: flo
     """y_k <- y_k + rho * residual_k with a fresh (post-step) forward pass
     (reference: src/kharmonic_lofar.py:186-202)."""
     return dual_update_from_outputs(model(x, uv), x, duals, rho)
+
+
+@torch.no_grad()
+def dual_update_(model, x: torch.Tensor, uv: torch.Tensor, duals: Duals,
+                 rho: float) -> None:
+    """``dual_update`` written into ``duals``' own tensors, which must not alias one
+    another: the same sums, each added in place (the CUDA-graph step's static duals)."""
+    for y, r in zip((duals.y1, duals.y2, duals.y3), _residuals(model(x, uv), x)):
+        y.add_(rho * r)
 
 
 @torch.no_grad()

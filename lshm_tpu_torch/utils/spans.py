@@ -25,8 +25,9 @@ holds on every thread and under ``profile_all_threads``.  Off, a span and its
 ``with`` cost about 0.3 us of host time.
 
 Names are ``<layer>.<what>``: ``trainer.*`` (``Trainer.run``, once a minibatch),
-``admm.*`` (``train/step.py``, once an ADMM iteration) and ``prefetch.*`` (the
-prefetch thread, ``data/sampler.py``).
+``admm.*`` (``train/step.py``, once an ADMM iteration; on CUDA graphs ``admm.replay``
+twice and ``admm.optimizer`` once an iteration, ``admm.capture`` once a capture) and
+``prefetch.*`` (the prefetch thread, ``data/sampler.py``).
 """
 
 from __future__ import annotations

@@ -150,6 +150,19 @@ def test_dft_matrices_match_jax(dtype):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-7)
 
 
+def test_dft_matrices_made_under_inference_mode_serve_a_backward():
+    """The matrices are cached: those first made under ``inference_mode`` (an
+    evaluation) are normal tensors, which a later training step saves for its
+    backward (a size no other test builds, so that this call makes them)."""
+    x = torch.randn(1, 24, 24, 2)
+    with torch.inference_mode():
+        want = fft2_shifted(x)
+    xg = x.clone().requires_grad_()
+    got = fft2_shifted(xg)
+    got.square().sum().backward()
+    assert torch.equal(got.detach(), want) and xg.grad.shape == x.shape
+
+
 @pytest.mark.parametrize("kernels", [True, False], ids=["kernels", "plain"])
 def test_cascade_outputs_and_duals_match_jax(jax_reference, kernels):
     ref = jax_reference
