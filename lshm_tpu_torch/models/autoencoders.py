@@ -75,7 +75,12 @@ def _scales(scales: tuple[float, ...], dtype: torch.dtype,
 def uv_harmonic_features(uv: torch.Tensor, scales: Sequence[float]) -> torch.Tensor:
     """Kron-harmonic embedding of (u, v): [N, 2] -> [N, 4 * len(scales)]
     (reference: src/lofar_models.py:60-62)."""
-    s = _scales(tuple(scales), uv.dtype, uv.device)
+    if torch.compiler.is_compiling():
+        # a trace (torch.export) takes its own constant: a cached one made under a trace
+        # would be a fake tensor, which the next trace cannot lift
+        s = torch.as_tensor(tuple(scales), dtype=uv.dtype, device=uv.device)
+    else:
+        s = _scales(tuple(scales), uv.dtype, uv.device)
     k = (s[None, :, None] * uv[:, None, :]).reshape(uv.shape[0], -1)     # [N, 2H]
     return torch.cat([torch.sin(k), torch.cos(k)], dim=-1)              # [N, 4H]
 

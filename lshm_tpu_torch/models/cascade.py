@@ -25,6 +25,13 @@ latents are cast back to the input's dtype (``lshm_tpu/models/cascade.py:152-154
 161, 195-197``): float32 under ``bfloat16``, bf16 under ``bfloat16_full`` (whose step
 casts the input batch, so the Fourier transform runs in bf16 there, as in JAX).  The
 KHM head's centroids stay float32.
+
+Under a profiler the Fourier variant records the spans ``cascade.dft`` (the transform)
+and ``cascade.aef`` (the Fourier AE's call) (``utils/spans.py``).  ``dft_calls`` counts
+the transform's forwards and the backwards through them among the kernels' launch
+counters (``kernels.register_counters``): a CUDA graph's capture takes back what it
+counted and each replay adds it (``train/step.py::CudaGraph``), so an eager ADMM
+iteration and a replayed one count alike.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from torch import nn
 
 from lshm_tpu_torch.config import ModelConfig, check_model_supported
+from lshm_tpu_torch.kernels import register_counters
 from lshm_tpu_torch.models.autoencoders import (
     AutoEncoder1D,
     AutoEncoder2D,
@@ -44,6 +52,16 @@ from lshm_tpu_torch.models.autoencoders import (
     uv_harmonic_features,
 )
 from lshm_tpu_torch.models.khm import KHarmonicMeans
+from lshm_tpu_torch.utils.spans import span
+
+# calls of fft2_shifted since the last reset (kernels.reset_launches): forwards, and
+# backwards through a forward's output
+dft_calls = {"dft_fwd": 0, "dft_bwd": 0}
+register_counters(dft_calls)
+
+
+def _count_backward(grad: torch.Tensor) -> None:
+    dft_calls["dft_bwd"] += 1
 
 
 @dataclass
@@ -90,7 +108,8 @@ def fft2_shifted(x: torch.Tensor) -> torch.Tensor:
     n // 2 on both), returned as real | imag channels [N, P, P, 2C] (reference:
     src/lofar_tools.py:24-30).  As in JAX, dense DFT matrices in x's dtype and six
     matrix products, without an FFT: axis h is C_h @ x viewed [N, H, W*C], axis w is
-    C_w @ y viewed [N*H, W, C] (F is symmetric)."""
+    C_w @ y viewed [N*H, W, C] (F is symmetric).  Counted in ``dft_calls``; a host-side
+    count only, so that a CUDA graph can capture the call."""
     n, h, w, c = x.shape
     Ch, Sh = dft_mats(h, x.dtype, x.device)
     Cw, Sw = dft_mats(w, x.dtype, x.device)
@@ -100,7 +119,11 @@ def fft2_shifted(x: torch.Tensor) -> torch.Tensor:
     zre = Cw @ yre - Sw @ yim
     zim = Sw @ yre + Cw @ yim
     z = torch.cat([zre, zim], dim=-1).view(n, h, w, 2 * c)
-    return torch.roll(z, (h // 2, w // 2), dims=(1, 2))
+    z = torch.roll(z, (h // 2, w // 2), dims=(1, 2))
+    dft_calls["dft_fwd"] += 1
+    if z.requires_grad:
+        z.register_hook(_count_backward)
+    return z
 
 
 class CascadedAE(nn.Module):
@@ -140,8 +163,12 @@ class CascadedAE(nn.Module):
         x11 = (x - x1) * 0.5
         if self.cfg.fourier_variant:
             # the full residual, with the notebooks' stability clamp
-            yf_in = torch.clamp(fft2_shifted(x - x1), -10.0, 10.0)
-            yf_out, ymu = like_x(*self.aef(yf_in, uv))
+            r = x - x1
+            with span("cascade.dft"):
+                yf = fft2_shifted(r)
+            yf_in = torch.clamp(yf, -10.0, 10.0)
+            with span("cascade.aef"):
+                yf_out, ymu = like_x(*self.aef(yf_in, uv))
             zero = torch.zeros_like(x)
             return CascadeOutputs(
                 x1=x1, x11=x11, x2=zero, x3=zero, xrecon=x1,

@@ -26,8 +26,10 @@ holds on every thread and under ``profile_all_threads``.  Off, a span and its
 
 Names are ``<layer>.<what>``: ``trainer.*`` (``Trainer.run``, once a minibatch),
 ``admm.*`` (``train/step.py``, once an ADMM iteration; on CUDA graphs ``admm.replay``
-twice and ``admm.optimizer`` once an iteration, ``admm.capture`` once a capture) and
-``prefetch.*`` (the prefetch thread, ``data/sampler.py``).
+twice and ``admm.optimizer`` once an iteration, ``admm.capture`` once a capture),
+``prefetch.*`` (the prefetch thread, ``data/sampler.py``) and ``cascade.*``
+(``models/cascade.py``, the Fourier variant's forward: ``cascade.dft`` and
+``cascade.aef`` once a forward, inside a CUDA graph's capture but not its replays).
 """
 
 from __future__ import annotations

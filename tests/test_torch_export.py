@@ -93,3 +93,20 @@ def test_exported_graph_calls_the_head_operator(small_model, monkeypatch):
     monkeypatch.setattr(conv_head, "head_forward", spy)
     fn(*map(torch.from_numpy, _inputs(3, 5)))
     assert calls == [torch.Size([3, 128, 128, 4])]
+
+
+def test_export_twice_from_an_empty_scales_cache(small_model):
+    """The uv harmonic scales are cached per device for the eager and graph-captured
+    forwards; a trace must not fill that cache with its fake tensor, or the next
+    export in the process fails to lift it."""
+    from lshm_tpu_torch.models import autoencoders
+
+    port, _, _ = small_model
+    autoencoders._scales.cache_clear()
+    x, uv = _inputs(2, 3)
+    outs = [load_exported(export_forward(port, batch_size=2))(torch.from_numpy(x),
+                                                                torch.from_numpy(uv))
+            for _ in range(2)]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert autoencoders._scales.cache_info().currsize == 0
