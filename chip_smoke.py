@@ -58,7 +58,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
   8. trainer_fourier  the same run of preset fourier_cascade (the legacy Fourier
                 pipeline, latent 224 + 64): K1, K2, K3 and K4 launch exactly 30, 30, 60
                 and 30 times, K5 never; then agree_fourier (as 6) and its first ADMM
-                iteration in bfloat16_full against float32 (as 7)
+                iteration in bfloat16_full against float32 (as 7); the DFT kernels
+                launch as often as dft_calls counts the transform (60 and 30)
+  8b. dft       the Fourier cascade's DFT kernels (csrc/dft.cu) at [420, 128, 128, 4]
+                and at C = 8: forward and adjoint against torch.fft in float64, against
+                the dense path (fft2_dense and autograd through it) and the plain
+                version (no farther from float64 than the dense path, 1e-5 from the
+                plain version), bit-identical repeats and CUDA-graph replays, ms and the
+                profiler's us a launch beside the dense path's; then dft_profile: one
+                float32 Fourier minibatch under torch.profiler, every device operation
+                inside a cascade.dft span or a DFT2Backward node a DFT kernel, 20 and
+                10 launches, as dft_calls counts
   9. head_input_grad  enc_head on a CUDA x that needs its gradient, in float32 and in
                 bf16: K3, K4 and K5 of each dtype launch; float32 dx against autograd
                 through the plain version (2e-5), bf16 dx within one bf16 ulp and
@@ -1006,16 +1016,176 @@ def bf16_first_iteration(tree, tmpdir: str, name: str, phase: str) -> None:
 def trainer_fourier_phase(tree, tmpdir: str) -> dict:
     """The Adam trainer run of preset fourier_cascade (the legacy Fourier pipeline) at
     full width: K1-K4 launch 30, 30, 60 and 30 times, and K5 never (the head's input is
-    data; the Fourier AE has no fused head).  Then one minibatch through the kernels
-    and through the plain path, and the first ADMM iteration in bfloat16_full against
-    float32."""
+    data; the Fourier AE has no fused head); the transform runs 60 times forward and 30
+    backward (``dft_calls``), each one launch of the DFT kernels.  Then one minibatch
+    through the kernels and through the plain path, and the first ADMM iteration in
+    bfloat16_full against float32."""
     counts, _ = trainer_phase(tree, tmpdir, "fourier_cascade", ADAM_PATH,
                               "trainer_fourier")
     expect_launches(counts, {"khm_fwd": 30, "khm_bwd": 30, "head_fwd": 60, "head_bwd": 30,
-                             "head_dx": 0, "head_dx_bf16": 0}, "Fourier trainer")
+                             "head_dx": 0, "head_dx_bf16": 0, "dft_fwd": 60, "dft_bwd": 30,
+                             "dft2_fwd": 60, "dft2_adj": 30}, "Fourier trainer")
     agree_phase(tree, tmpdir, "fourier_cascade", "agree_fourier")
     bf16_first_iteration(tree, tmpdir, "fourier_cascade", "trainer_fourier_first_iteration")
     return counts
+
+
+def dft_f64(x: torch.Tensor) -> torch.Tensor:
+    """fft2_shifted's function in float64 through torch.fft: real | imag channels."""
+    z = torch.fft.fftshift(torch.fft.fft2(x.double(), dim=(1, 2), norm="ortho"), dim=(1, 2))
+    return torch.cat([z.real, z.imag], dim=-1)
+
+
+def dft_adjoint_f64(g: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``dft_f64`` in float64: Re(F^H ifftshift(g_re + i g_im))."""
+    c = g.shape[-1] // 2
+    z = torch.fft.ifftshift(torch.complex(g[..., :c].double(), g[..., c:].double()),
+                            dim=(1, 2))
+    return torch.fft.ifft2(z, dim=(1, 2), norm="ortho").real
+
+
+def dft_phase(dev) -> list[dict]:
+    """The Fourier cascade's DFT kernels (kernels/dft.py, csrc/dft.cu) at the main
+    path's [420, 128, 128, 4] and at C = 8: the forward and the adjoint against torch.fft
+    in float64, against the dense path (fft2_dense, its backward by autograd) and
+    against the plain version, each no farther from float64 than the dense path and
+    within 1e-5 of the plain version; two calls bit for bit; a CUDA graph's replay bit
+    for bit the eager results; ms (CUDA events) and the profiler's us a launch of each
+    kernel beside the dense path's forward and backward and the plain version.  Returns
+    the kernels table's rows (C = 4)."""
+    from lshm_tpu_torch.kernels import dft
+    from lshm_tpu_torch.models.cascade import fft2_dense
+    from lshm_tpu_torch.tools.measure import bound, profiler_us, time_ms
+
+    rows = []
+    for c in (4, 8):
+        g = torch.Generator().manual_seed(c)
+        x = torch.randn(PATCHES, 128, 128, c, generator=g).to(dev)
+        gy = torch.randn(PATCHES, 128, 128, 2 * c, generator=g).to(dev)
+        y, dx = dft.dft2_forward(x), dft.dft2_adjoint(gy)
+        y2, dx2 = dft.dft2_forward(x), dft.dft2_adjoint(gy)
+        y_p, dx_p = dft.dft2_forward_plain(x), dft.dft2_adjoint_plain(gy)
+        xr = x.clone().requires_grad_()
+        yd = fft2_dense(xr)
+        dxd = torch.autograd.grad(yd, xr, gy, retain_graph=True)[0]
+        y64, dx64 = dft_f64(x), dft_adjoint_f64(gy)
+
+        side = torch.cuda.Stream()              # warm-up off the capturing stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dft.dft2_forward(x), dft.dft2_adjoint(gy)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            yg, dxg = dft.dft2_forward(x), dft.dft2_adjoint(gy)
+        graph.replay()
+        torch.cuda.synchronize()
+        row = {"phase": "dft", "shape": list(x.shape),
+               "fwd_vs_f64": {"kernel": rel_err(y.double(), y64),
+                              "dense": rel_err(yd.detach().double(), y64),
+                              "plain": rel_err(y_p.double(), y64)},
+               "adj_vs_f64": {"kernel": rel_err(dx.double(), dx64),
+                              "dense": rel_err(dxd.double(), dx64),
+                              "plain": rel_err(dx_p.double(), dx64)},
+               "fwd_vs_dense": rel_err(y, yd.detach()), "adj_vs_dense": rel_err(dx, dxd),
+               "fwd_vs_plain": rel_err(y, y_p), "adj_vs_plain": rel_err(dx, dx_p),
+               "bit_identical": bool(torch.equal(y, y2) and torch.equal(dx, dx2)),
+               "graph_bit_identical": bool(torch.equal(yg, y) and torch.equal(dxg, dx))}
+        emit(row)
+        near = all(d["kernel"] <= d["dense"] for d in (row["fwd_vs_f64"], row["adj_vs_f64"]))
+        if (not near or row["fwd_vs_plain"] > 1e-5 or row["adj_vs_plain"] > 1e-5
+                or not row["bit_identical"] or not row["graph_bit_identical"]):
+            raise AssertionError(f"the DFT kernels disagree: {row}")
+        del yg, dxg, graph
+
+        fwd = lambda: dft.dft2_forward(x)                                 # noqa: E731
+        adj = lambda: dft.dft2_adjoint(gy)                                # noqa: E731
+        dense_bwd = lambda: torch.autograd.grad(yd, xr, gy, retain_graph=True)  # noqa: E731
+        prof = {**profiler_us(fwd), **profiler_us(adj)}
+        dense = {"fwd_ms": time_ms(lambda: fft2_dense(x)), "bwd_ms": time_ms(dense_bwd),
+                 "fwd_profiler_us": profiler_us(lambda: fft2_dense(x)),
+                 "bwd_profiler_us": profiler_us(dense_bwd)}
+        # x in and real | imag out once; 5 M log2 M for each complex plane of M points
+        least = bound(4.0 * 3 * x.numel(), 5.0 * x.numel() / 2 * 14)
+        timing = {"phase": "dft_timing", "C": c, "fwd_ms": time_ms(fwd),
+                  "adj_ms": time_ms(adj), "profiler_us": prof, "dense": dense,
+                  "bound_ms": least[0], "bound_by": least[1]}
+        emit(timing)
+        if c != 4:
+            continue
+        for op, counter, plain in (
+                ("forward", "dft2_fwd", lambda: dft.dft2_forward_plain(x)),
+                ("adjoint", "dft2_adj", lambda: dft.dft2_adjoint_plain(gy))):
+            rows.append(dict(
+                name=f"DFT {counter}", route="cuda", source="lshm_tpu_torch/csrc/dft.cu",
+                replaces="none (lshm_tpu/models/cascade.py:66-90, dense einsum)",
+                counter=counter, path="trainer_fourier",
+                arch="a complex plane of two channels a CTA in shared memory, "
+                     "radix-16 x 8 FFTs in registers",
+                max_abs_err=abs_err(*((y, y_p) if op == "forward" else (dx, dx_p))),
+                ms=timing["fwd_ms" if op == "forward" else "adj_ms"],
+                profiler_us=next(us for k, us in prof.items() if k.startswith(counter)),
+                plain_ms=time_ms(plain),
+                bound_ms=least[0], bound_by=least[1],
+                library_ms=dense["fwd_ms" if op == "forward" else "bwd_ms"]))
+        del xr, yd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dft_profile_phase(tree, tmpdir: str) -> dict:
+    """One float32 fourier_cascade minibatch (10 ADMM iterations, eager: a train state's
+    first) under torch.profiler: every device operation launched inside a
+    ``cascade.dft`` span or an autograd ``DFT2Backward`` node is one of the DFT's
+    kernels (its name holds ``dft``), and the kernels' launches equal ``dft_calls``:
+    20 forwards and 10 backwards."""
+    from lshm_tpu_torch.data import MinibatchSampler
+    from lshm_tpu_torch.kernels import launch_counts, reset_launches
+    from lshm_tpu_torch.train import LossWeights, init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = flagship_config(tmpdir, "fourier_cascade")
+    mb = MinibatchSampler([tree], ["0"], cfg.data, seed=cfg.train.seed).sample()
+    x, uv = torch.from_numpy(mb.x).to(dev), torch.from_numpy(mb.uv).to(dev)
+    state = init_train_state(cfg, dev)
+    step = make_train_step(cfg, mb.num_baselines)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(state, x, uv, LossWeights())
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    events = prof.events()
+    owners = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+              and (e.name == "cascade.dft" or e.name.endswith("DFT2Backward"))]
+    kernels = {e.id: e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    under: dict[str, dict[str, int]] = {}
+    for r in events:                      # the runtime calls that launched device work
+        if (r.device_type != torch.autograd.DeviceType.CPU or not r.name.startswith("cu")
+                or r.id not in kernels):
+            continue
+        for o in owners:                  # a backward node is two nested events
+            if o.time_range.start <= r.time_range.start <= o.time_range.end:
+                key = "cascade.dft" if o.name == "cascade.dft" else "DFT2Backward"
+                names = under.setdefault(key, {})
+                names[kernels[r.id]] = names.get(kernels[r.id], 0) + 1
+                break
+    named = {k: sum(n for name, n in v.items() if "dft" in name.lower())
+             for k, v in under.items()}
+    row = {"phase": "dft_profile", "owners": len(owners), "kernels_under": under,
+           "dft_calls": {k: counts[k] for k in ("dft_fwd", "dft_bwd")},
+           "dft_launches": {k: counts[k] for k in ("dft2_fwd", "dft2_adj")}}
+    emit(row)
+    if (set(under) != {"cascade.dft", "DFT2Backward"}
+            or any(named[k] != sum(v.values()) for k, v in under.items())
+            or named["cascade.dft"] != counts["dft2_fwd"]
+            or named["DFT2Backward"] != counts["dft2_adj"]):
+        raise AssertionError(f"device work under the DFT is not the DFT's kernels: {row}")
+    expect_launches(counts, {"dft_fwd": 20, "dft_bwd": 10, "dft2_fwd": 20, "dft2_adj": 10},
+                    "profiled Fourier minibatch")
+    return row
 
 
 def agree_phase(tree, tmpdir: str, name: str = "full_khm", phase: str = "agree") -> None:
@@ -3258,6 +3428,8 @@ def main() -> int:
     adam = timed("trainer", in_tmpdir, trainer_and_agree)
     adam_bf16 = timed("trainer_bf16", in_tmpdir, lambda d: trainer_bf16_phase(tree, d))
     fourier = timed("trainer_fourier", in_tmpdir, lambda d: trainer_fourier_phase(tree, d))
+    kernels += timed("dft", dft_phase, dev)
+    timed("dft_profile", in_tmpdir, lambda d: dft_profile_phase(tree, d))
     head = timed("head_input_grad", head_input_grad_phase, dev)
     probe, k6_rows = timed("conv0_probe", conv0_probe_phase, dev)
     kernels += k6_rows

@@ -8,11 +8,11 @@ model's own counters (calls of an operation that launches no kernel of this pack
 such as ``models/cascade.py::dft_calls``) to the same accounting.
 """
 
-from lshm_tpu_torch.kernels import conv0, conv_head, khm
+from lshm_tpu_torch.kernels import conv0, conv_head, dft, khm
 from lshm_tpu_torch.kernels.conv_head import enc_head
 from lshm_tpu_torch.kernels.khm import khm_loss_fused
 
-_COUNTERS = [khm.launches, conv_head.launches, conv0.launches]
+_COUNTERS = [khm.launches, conv_head.launches, conv0.launches, dft.launches]
 
 
 def register_counters(counts: dict[str, int]) -> None:

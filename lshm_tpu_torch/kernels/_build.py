@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("khm", "conv_head", "conv0")
+SOURCES = ("khm", "conv_head", "conv0", "dft")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

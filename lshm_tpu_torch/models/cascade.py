@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from lshm_tpu_torch.config import ModelConfig, check_model_supported
-from lshm_tpu_torch.kernels import register_counters
+from lshm_tpu_torch.kernels import dft, register_counters
 from lshm_tpu_torch.models.autoencoders import (
     AutoEncoder1D,
     AutoEncoder2D,
@@ -103,13 +103,10 @@ def dft_mats(n: int, dtype: torch.dtype, device: torch.device
                      for f in (torch.cos, torch.sin))
 
 
-def fft2_shifted(x: torch.Tensor) -> torch.Tensor:
-    """Orthonormal 2D DFT over the spatial dims of NHWC x, then fftshift (a roll by
-    n // 2 on both), returned as real | imag channels [N, P, P, 2C] (reference:
-    src/lofar_tools.py:24-30).  As in JAX, dense DFT matrices in x's dtype and six
+def fft2_dense(x: torch.Tensor) -> torch.Tensor:
+    """``fft2_shifted`` as JAX computes it: dense DFT matrices in x's dtype and six
     matrix products, without an FFT: axis h is C_h @ x viewed [N, H, W*C], axis w is
-    C_w @ y viewed [N*H, W, C] (F is symmetric).  Counted in ``dft_calls``; a host-side
-    count only, so that a CUDA graph can capture the call."""
+    C_w @ y viewed [N*H, W, C] (F is symmetric), then the real | imag cat and the roll."""
     n, h, w, c = x.shape
     Ch, Sh = dft_mats(h, x.dtype, x.device)
     Cw, Sw = dft_mats(w, x.dtype, x.device)
@@ -119,7 +116,18 @@ def fft2_shifted(x: torch.Tensor) -> torch.Tensor:
     zre = Cw @ yre - Sw @ yim
     zim = Sw @ yre + Cw @ yim
     z = torch.cat([zre, zim], dim=-1).view(n, h, w, 2 * c)
-    z = torch.roll(z, (h // 2, w // 2), dims=(1, 2))
+    return torch.roll(z, (h // 2, w // 2), dims=(1, 2))
+
+
+def fft2_shifted(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal 2D DFT over the spatial dims of NHWC x, then fftshift (a roll by
+    n // 2 on both), returned as real | imag channels [N, P, P, 2C] (reference:
+    src/lofar_tools.py:24-30).  A float32 CUDA tensor with P a power of two from 8 to
+    128 and C 2, 4 or 8 (``kernels.dft.takes``) goes through the FFT kernels, one launch
+    forward and one backward (``kernels/dft.py``); anything else (the CPU, bfloat16,
+    other sizes) through the dense products of ``fft2_dense``, as in JAX.  Counted in ``dft_calls``;
+    a host-side count only, so that a CUDA graph can capture the call."""
+    z = dft.dft2_shifted(x) if x.is_cuda and dft.takes(x) else fft2_dense(x)
     dft_calls["dft_fwd"] += 1
     if z.requires_grad:
         z.register_hook(_count_backward)
